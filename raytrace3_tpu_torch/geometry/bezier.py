@@ -1,0 +1,169 @@
+"""Cubic Bezier patches: Bernstein evaluation and the ray-object hit.
+
+Port of the forward parts of ``raytrace3_tpu/geometry/bezier.py``.  The
+Newton solve itself is ``ops/newton_kernel.solve`` (the CUDA kernel, or its
+plain twin on the CPU); it runs without autograd here.  The implicit-
+function-theorem backward (``winner_root``) waits for the differentiable
+slice.  ``load_bpt`` and ``teapot_transform`` are host-side numpy, copied.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..core.types import Record
+from ..core.vecmath import MAX_DIST, cross, normalize
+from ..ops import newton_kernel
+from ..ops.compact import compact_indices
+from .aabb import aabb_from_points, slab_test
+
+#: Reference Newton iteration budget (Bezier.h:6 ``MAX_ITER 10``).
+DEFAULT_NEWTON_ITERS = 10
+
+
+@dataclass
+class BezierObject(Record):
+    """One Bezier object = a bag of bicubic patches (the teapot: B=32)."""
+
+    ctrl: torch.Tensor  # (B, 4, 4, 3); ctrl[b, i, k]: i pairs with the v
+    #                     basis and k with the u basis (Bezier.h:85-90)
+
+    @property
+    def num_patches(self) -> int:
+        return self.ctrl.shape[0]
+
+
+def bernstein(t: torch.Tensor) -> torch.Tensor:
+    """Cubic Bernstein basis, (...,) -> (..., 4) (Bezier.h:69-76)."""
+    s = 1.0 - t
+    return torch.stack([s * s * s, 3.0 * t * s * s, 3.0 * t * t * s, t * t * t], -1)
+
+
+def dbernstein(t: torch.Tensor) -> torch.Tensor:
+    """Its derivative, (...,) -> (..., 4) (Bezier.h:77-84)."""
+    s = 1.0 - t
+    return torch.stack([-3.0 * s * s, 3.0 * s * s - 6.0 * t * s,
+                        6.0 * t * s - 3.0 * t * t, 3.0 * t * t], -1)
+
+
+def _contract_v(b: torch.Tensor, ctrl: torch.Tensor) -> torch.Tensor:
+    """sum_i b_i ctrl[..., i, k, c] -> (..., 4, 3), no matmul."""
+    return (b[..., :, None, None] * ctrl).sum(-3)
+
+
+def _contract_u(b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """sum_k b_k g[..., k, c] -> (..., 3)."""
+    return (b[..., :, None] * g).sum(-2)
+
+
+def patch_point(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """S(u, v) = b(v)^T G b(u) for ctrl (..., 4, 4, 3) (Bezier.h:85-90)."""
+    return _contract_u(bernstein(u), _contract_v(bernstein(v), ctrl))
+
+
+def patch_tangents(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """(dS/du, dS/dv) (Bezier.h:92-111)."""
+    su = _contract_u(dbernstein(u), _contract_v(bernstein(v), ctrl))
+    sv = _contract_u(bernstein(u), _contract_v(dbernstein(v), ctrl))
+    return su, sv
+
+
+def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
+                     iters: int = DEFAULT_NEWTON_ITERS, newton_fn=None,
+                     compact_frac: float = 1.0):
+    """Nearest ray-object hit over all patches (Bezier.h:240-282).
+
+    Object-AABB gate, the winner-contract Newton solve, and the winner's
+    normal Su x Sv flipped toward the viewer.  ``compact_frac`` < 1 gathers
+    only the rays that pass the object AABB into a buffer of
+    ``max(8, int(R * compact_frac))`` lanes before the solve; gated rays
+    beyond that capacity count as misses.
+
+    ``newton_fn``: a winner-contract solver ``(org, dir, ctrl) ->
+    (t, u, v, patch_id, hit)``; defaults to ``newton_kernel.solve`` at
+    ``iters`` iterations and its default restarts.
+
+    Returns (t, hit, u, v, n): t (R,), hit (R,), u/v (R,), n (R, 3).
+    """
+    R = org.shape[0]
+    ctrl = obj.ctrl
+    pmin, pmax = aabb_from_points(ctrl.reshape(obj.num_patches, 16, 3))
+    obj_gate = slab_test(org, dir, pmin.amin(0), pmax.amax(0))
+    solver = newton_fn if newton_fn is not None else partial(
+        newton_kernel.solve, iters=iters)
+
+    def winner_normal(d, u, v, pid):
+        su, sv = patch_tangents(ctrl[pid.long()], u, v)
+        n = cross(su, sv)
+        n = torch.where((n * d).sum(-1, keepdim=True) > 0.0, -n, n)
+        return normalize(n)
+
+    cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
+    if cap < R:
+        idx = compact_indices(obj_gate, cap, fill=R)              # (cap,)
+        od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
+        org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
+        t_c, u_c, v_c, pid_c, hit_c = solver(org_c, dir_c, ctrl)
+        n_c = winner_normal(dir_c, u_c, v_c, pid_c)
+        rows = torch.cat([t_c[:, None], u_c[:, None], v_c[:, None],
+                          hit_c.to(dir.dtype)[:, None], n_c], 1)  # (cap, 7)
+        # Misses read t = MAX_DIST, n = (0, 0, 1); row R takes the fill
+        # slots and is cut off.
+        out = torch.zeros((R + 1, 7), dtype=dir.dtype, device=dir.device)
+        out[:, 0] = MAX_DIST
+        out[:, 6] = 1.0
+        out[idx] = rows
+        t_best, u_best, v_best = out[:R, 0], out[:R, 1], out[:R, 2]
+        hit = out[:R, 3] > 0.5
+        n = out[:R, 4:7]
+    else:
+        t_best, u_best, v_best, pid, hit = solver(org.contiguous(),
+                                                  dir.contiguous(), ctrl)
+        n = winner_normal(dir, u_best, v_best, pid)
+
+    hit = hit & obj_gate
+    return torch.where(hit, t_best, MAX_DIST), hit, u_best, v_best, n
+
+
+def load_bpt(path: str, scale: float = 1.0, transform: np.ndarray | None = None,
+             translate=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """Parse a Newell-format ``.bpt`` patch file -> (B, 4, 4, 3) float32,
+    applying p -> transform @ (scale * p) + translate (Scene.h:142-154)."""
+    with open(path) as f:
+        tok = f.read().split()
+    it = iter(tok)
+    nxt = lambda: next(it)
+    b = int(nxt())
+    out = np.empty((b, 4, 4, 3), np.float64)
+    tr = np.eye(3) if transform is None else np.asarray(transform, np.float64)
+    c = np.asarray(translate, np.float64)
+    for p in range(b):
+        m, n = int(nxt()), int(nxt())
+        if (m, n) != (3, 3):
+            raise ValueError(f"patch {p}: only bicubic supported, got {m}x{n}")
+        pts = np.array([[float(nxt()) for _ in range(3)] for _ in range(16)])
+        pts = (tr @ (pts * scale).T).T + c
+        out[p] = pts.reshape(4, 4, 3)
+    return out.astype(np.float32)
+
+
+def teapot_transform() -> np.ndarray:
+    """The reference teapot orientation (Scene.h:142-152): Trans swaps y/z,
+    Trans2 rotates 90 deg about y; composed Trans2 @ Trans."""
+    trans = np.zeros((3, 3))
+    trans[0, 0] = 1.0
+    trans[1, 2] = 1.0
+    trans[2, 1] = 1.0
+    th = np.pi / 2.0
+    trans2 = np.array(
+        [
+            [np.cos(th), 0.0, np.sin(th)],
+            [0.0, 1.0, 0.0],
+            [-np.sin(th), 0.0, np.cos(th)],
+        ]
+    )
+    return trans2 @ trans

@@ -1,0 +1,372 @@
+"""Banded photon deposit: the host side, the CUDA tile kernel and its twin.
+
+Port of ``raytrace3_tpu/ops/deposit_pallas.py``'s ``PallasDepositTile`` with
+1-D banding (``bucket2d=False``), the bench's deposit:
+
+  * key = x-bucket id * y_stride + quantized y, with bucket width 2r along
+    x and y quantized to 1/8 unit; window bounds are floor/ceil, so every
+    window is a superset and the pair test is the true filter;
+  * hit points live in a bucket-aligned, tile-padded layout (``prepare``,
+    once per pass), so each tile of ``tile`` slots belongs to one bucket and
+    its neighbours lie in K = 3 key intervals of the round's sorted
+    deposits, found by ``searchsorted`` and made disjoint by a cascade;
+  * ``deposit_tile(sk, ek, packed, dep_packed)`` walks those intervals:
+    ``csrc/deposit_tile.cu`` for CUDA tensors, :func:`deposit_tile_plain`
+    for CPU tensors, nothing else.
+
+Sorts are stable (``torch.sort(stable=True)``); the JAX side's sort leaves
+the order of equal keys open, which moves only the flux summation order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.types import Deposits, HitPoints, Record
+from ..render.deposit import NORMAL_DOT_MIN
+from .cuda_build import CudaKernel, check, ptr
+
+#: Reference fixed search radius^2 = 2.0 (Raytracer.h:85).
+SEARCH_R = math.sqrt(2.0)
+DEFAULT_X_LO = -40.0
+DEFAULT_X_HI = 200.0
+#: Sentinel position for invalid and padding deposit lanes.
+FAR = 1e9
+#: Sort-key y quantisation: 1/8 unit over [y_lo, y_hi).
+Y_LO = -40.0
+Y_HI = 240.0
+YQ = 8.0
+
+KERNEL = CudaKernel("deposit_tile.cu", "rt3_deposit_tile", [
+    ctypes.c_void_p, ctypes.c_void_p,                    # sk, ek
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # n_tiles, K, tile
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
+    ctypes.c_void_p,                                     # out
+])
+
+
+def deposit_tile_plain(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
+                       dep_packed: torch.Tensor,
+                       pairs_per_step: int = 1 << 22) -> torch.Tensor:
+    """The kernel's contract in plain PyTorch, over tiles in steps.
+
+    The (tile, deposit lane) items of all intervals are enumerated in
+    order (tile, window, lane) and tested against the item's tile in
+    steps of ``pairs_per_step // tile`` items, so a whole bench round fits
+    in memory on the card.
+    """
+    n_tiles, K = sk.shape
+    c_pad = packed.shape[0]
+    t = c_pad // n_tiles
+    dev = packed.device
+    hp = packed.reshape(n_tiles, t, 8)
+    lens = torch.clamp_min(ek - sk, 0).reshape(-1).long()
+    ends = torch.cumsum(lens, 0)
+    starts = ends - lens
+    total = int(ends[-1]) if ends.numel() else 0
+    cnt = torch.zeros((n_tiles, t), dtype=torch.float32, device=dev)
+    flux = torch.zeros((3, n_tiles, t), dtype=torch.float32, device=dev)
+    step = max(1, pairs_per_step // t)
+    sk_flat = sk.reshape(-1).long()
+    for i0 in range(0, total, step):
+        item = torch.arange(i0, min(i0 + step, total), device=dev)
+        win = torch.searchsorted(ends, item, right=True)
+        lane = sk_flat[win] + (item - starts[win])
+        tile = win // K
+        d = dep_packed[:9, lane]                              # (9, P)
+        h = hp[tile]                                          # (P, t, 8)
+        dx = h[..., 0] - d[0, :, None]
+        dy = h[..., 1] - d[1, :, None]
+        dz = h[..., 2] - d[2, :, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        ndot = h[..., 3] * d[3, :, None] + h[..., 4] * d[4, :, None] \
+            + h[..., 5] * d[5, :, None]
+        m = ((d2 <= h[..., 6]) & (ndot > NORMAL_DOT_MIN)).to(torch.float32)
+        cnt.index_add_(0, tile, m)
+        for c in range(3):
+            flux[c].index_add_(0, tile, m * d[6 + c, :, None])
+    out = torch.zeros((c_pad, 8), dtype=torch.float32, device=dev)
+    out[:, 0] = cnt.reshape(-1)
+    out[:, 1:4] = flux.reshape(3, -1).T
+    return out
+
+
+def _deposit_tile_cuda(sk, ek, packed, dep_packed):
+    dev = packed.device
+    n_tiles, K = sk.shape
+    c_pad = packed.shape[0]
+    check("sk", sk, torch.int32, (n_tiles, K), dev)
+    check("ek", ek, torch.int32, (n_tiles, K), dev)
+    check("packed", packed, torch.float32, (c_pad, 8), dev)
+    check("dep_packed", dep_packed, torch.float32, (16, None), dev)
+    tile = c_pad // n_tiles
+    if tile * n_tiles != c_pad or not 1 <= tile <= 1024:
+        raise ValueError(f"c_pad {c_pad} is not n_tiles {n_tiles} tiles of "
+                         "1..1024 slots")
+    out = torch.empty((c_pad, 8), dtype=torch.float32, device=dev)
+    KERNEL.launch(dev, ptr(sk), ptr(ek), n_tiles, K, tile, ptr(packed),
+                  ptr(dep_packed), dep_packed.shape[1], ptr(out))
+    return out
+
+
+def deposit_tile(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
+                 dep_packed: torch.Tensor) -> torch.Tensor:
+    """Count (col 0) and raw RGB flux (cols 1:4) per hit slot, (c_pad, 8).
+
+    ``sk``, ``ek``: (n_tiles, K) int32 cascaded lane intervals;
+    ``packed``: (c_pad, 8) hit slots; ``dep_packed``: (16, Dp) sorted
+    deposits.  CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`deposit_tile_plain`.
+    """
+    if packed.is_cuda:
+        return _deposit_tile_cuda(sk, ek, packed, dep_packed)
+    if packed.device.type == "cpu":
+        return deposit_tile_plain(sk, ek, packed, dep_packed)
+    raise ValueError(f"no deposit kernel for device {packed.device}")
+
+
+@dataclass
+class HpLayout(Record):
+    """Round-invariant hit-point side of the banded deposit (one per pass)."""
+
+    packed: torch.Tensor    # (c_pad, 8): pos xyz, n xyz, r2 slot, unused
+    g: torch.Tensor         # (C,) int64 layout slot of hit point i
+    lo_keys: torch.Tensor   # (n_tiles, K) int32 window lower keys
+    hi_keys: torch.Tensor   # (n_tiles, K) int32 window upper keys
+
+
+class DepositTile:
+    """``deposit_fn(hp, dep) -> (d_nphot, d_tao, overflow)``, banded.
+
+    ``prepare(hp)`` builds the hit-point layout once per pass;
+    ``pack_state``/``packed_call`` let ``photon_rounds`` run every round in
+    layout space.  There is no work cap, so ``overflow`` is always 0.
+    """
+
+    #: calls return (d_nphot, d_tao, overflow)
+    returns_aux = True
+
+    def __init__(self, tile: int = 256, chunk: int = 2048, axes=(0, 1),
+                 search_r: float = SEARCH_R, x_lo: float = DEFAULT_X_LO,
+                 x_hi: float = DEFAULT_X_HI, y_lo: float = Y_LO,
+                 y_hi: float = Y_HI):
+        self.tile = tile
+        #: deposit lanes are padded to a multiple of this (JAX parity)
+        self.chunk = chunk
+        self.ax, self.ay = axes
+        self.search_r = search_r
+        self.bucket = 2.0 * search_r
+        self.x_lo = x_lo
+        self.n_bx = int(math.ceil((x_hi - x_lo) / self.bucket)) + 1
+        self.n_bz = 1
+        self.n_buckets = self.n_bx
+        self.y_lo = y_lo
+        self.y_range = int(math.ceil((y_hi - y_lo) * YQ))
+        self.y_stride = self.y_range + 2
+        #: window bucket offsets, ascending (key order): the x neighbours
+        self.win_offs = [-1, 0, 1]
+
+    # -- helpers -----------------------------------------------------------
+    def _bid(self, pos: torch.Tensor) -> torch.Tensor:
+        """x-bucket id per row of ``pos`` (int32)."""
+        kx = torch.floor((pos[:, self.ax] - self.x_lo) / self.bucket)
+        return torch.clamp(kx.to(torch.int32), 0, self.n_bx - 1)
+
+    def _yq(self, y: torch.Tensor) -> torch.Tensor:
+        """Quantized sort coordinate (floor; conservative with ceil hi)."""
+        return torch.clamp(torch.floor((y - self.y_lo) * YQ).to(torch.int32),
+                           0, self.y_range - 1)
+
+    def _c_pad(self, C: int) -> int:
+        t = self.tile
+        return ((C + t - 1) // t) * t + (self.n_buckets + 1) * t
+
+    def _build_windows(self, kb, ylo_q, yhi_q):
+        """Per-tile (lo_keys, hi_keys), (n_tiles, K) each: the tile's own
+        bucket and its x neighbours, over the tile's y range."""
+        lo = [(kb + o) * self.y_stride + ylo_q for o in self.win_offs]
+        hi = [(kb + o) * self.y_stride + yhi_q for o in self.win_offs]
+        return torch.stack(lo, 1), torch.stack(hi, 1)
+
+    def _sentinel_key(self) -> int:
+        """Key for invalid deposit lanes: beyond every window."""
+        return (self.n_buckets + self.n_bz + 2) * self.y_stride
+
+    # -- once per pass -----------------------------------------------------
+    def prepare(self, hp: HitPoints) -> HpLayout:
+        t = self.tile
+        C = hp.capacity
+        nb = self.n_buckets
+        dev = hp.pos.device
+        hkx = torch.where(hp.valid, self._bid(hp.pos), nb).to(torch.int32)
+        hkey = hkx * self.y_stride + torch.where(
+            hp.valid, self._yq(hp.pos[:, self.ay]), 0)
+        _, h_ord = torch.sort(hkey, stable=True)
+        kx_sorted = hkx[h_ord]
+
+        counts = torch.bincount(kx_sorted, minlength=nb + 1)
+        padded = ((counts + t - 1) // t) * t
+        offsets = torch.cumsum(padded, 0) - padded
+        # Rank within the bucket run: index minus the run's first index.
+        i_arange = torch.arange(C, device=dev)
+        is_start = torch.ones((C,), dtype=torch.bool, device=dev)
+        is_start[1:] = kx_sorted[1:] != kx_sorted[:-1]
+        first_idx = torch.cummax(torch.where(is_start, i_arange, 0), 0).values
+        dest = offsets[kx_sorted.long()] + (i_arange - first_idx)
+
+        c_pad = self._c_pad(C)
+        packed = torch.full((c_pad, 8), FAR, dtype=torch.float32, device=dev)
+        rows = torch.cat([hp.pos, hp.n,
+                          torch.full((C, 1), -1.0, device=dev),
+                          torch.zeros((C, 1), device=dev)], 1)
+        packed[dest] = rows[h_ord]
+        # Padding slots keep finite normals (r2 = -1 kills their test).
+        packed[:, 3:6] = torch.where(packed[:, 3:6] >= FAR, 0.0, packed[:, 3:6])
+
+        n_tiles = c_pad // t
+        slot_kx = torch.zeros((c_pad,), dtype=torch.int32, device=dev)
+        slot_kx[dest] = kx_sorted
+        kb = slot_kx.reshape(n_tiles, t).amax(1)
+        tv = torch.zeros((c_pad,), dtype=torch.bool, device=dev)
+        tv[dest] = hp.valid[h_ord]
+        tv = tv.reshape(n_tiles, t)
+        ty = packed[:, self.ay].reshape(n_tiles, t)
+        y_lo = torch.where(tv, ty, torch.inf).amin(1) - self.search_r
+        y_hi = torch.where(tv, ty, -torch.inf).amax(1) + self.search_r
+        dead = ~torch.isfinite(y_lo)
+        # Conservative quantized bounds: floor for lo, ceil for hi; lo tops
+        # out at y_range - 1 to match _yq's clip.
+        ylo_q = torch.clamp(torch.floor((y_lo - self.y_lo) * YQ), -1e9,
+                            self.y_range - 1).to(torch.int32)
+        yhi_q = torch.clamp(torch.ceil((y_hi - self.y_lo) * YQ), -1e9,
+                            self.y_range).to(torch.int32)
+        lo_keys, hi_keys = self._build_windows(kb, ylo_q, yhi_q)
+        big = self._sentinel_key() + self.y_stride
+        lo_keys = torch.where(dead[:, None], big, lo_keys).to(torch.int32)
+        hi_keys = torch.where(dead[:, None], big, hi_keys).to(torch.int32)
+        g = torch.zeros((C,), dtype=torch.int64, device=dev)
+        g[h_ord] = dest
+        return HpLayout(packed=packed, g=g, lo_keys=lo_keys, hi_keys=hi_keys)
+
+    # -- per round ---------------------------------------------------------
+    def _dep_sorted(self, dep: Deposits, granularity: int):
+        """Sort and pack the round's deposits: (dkeys, dep_packed, Dp).
+
+        ``dep_packed`` is (16, Dp), Dp a multiple of ``granularity``; rows
+        pos xyz (FAR for invalid), n xyz, flux rgb (0 for invalid), zeros.
+        """
+        D = dep.pos.shape[0]
+        Dp = ((D + granularity - 1) // granularity) * granularity
+        dkey = torch.where(
+            dep.valid,
+            self._bid(dep.pos) * self.y_stride + self._yq(dep.pos[:, self.ay]),
+            self._sentinel_key()).to(torch.int32)
+        okc = dep.valid[:, None]
+        rows = torch.cat([torch.where(okc, dep.pos, FAR), dep.n,
+                          torch.where(okc, dep.flux, 0.0)], 1)      # (D, 9)
+        dkeys, order = torch.sort(dkey, stable=True)
+        dep_packed = torch.zeros((16, Dp), dtype=torch.float32,
+                                 device=dep.pos.device)
+        dep_packed[0:3] = FAR
+        dep_packed[0:9, :D] = rows[order].T
+        return dkeys, dep_packed, Dp
+
+    def _window_lanes(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int):
+        """Per-(tile, window) lane intervals [s, e), disjoint via a cascade:
+        each start moves past the previous window's end."""
+        K = len(self.win_offs)
+        s_lane = torch.searchsorted(dkeys, prep.lo_keys.reshape(-1)).reshape(n_tiles, K)
+        e_lane = torch.searchsorted(dkeys, prep.hi_keys.reshape(-1),
+                                    right=True).reshape(n_tiles, K)
+        prev_e = torch.zeros_like(s_lane[:, 0])
+        s_cols, e_cols = [], []
+        for k in range(K):
+            s_k = torch.maximum(s_lane[:, k], prev_e)
+            e_k = torch.maximum(e_lane[:, k], s_k)
+            s_cols.append(s_k)
+            e_cols.append(e_k)
+            prev_e = e_k
+        return torch.stack(s_cols, 1), torch.stack(e_cols, 1)
+
+    def _kernel_call(self, packed: torch.Tensor, dep: Deposits, prep: HpLayout):
+        n_tiles = packed.shape[0] // self.tile
+        dkeys, dep_packed, _ = self._dep_sorted(dep, self.chunk)
+        sk, ek = self._window_lanes(prep, dkeys, n_tiles)
+        out = deposit_tile(sk.to(torch.int32).contiguous(),
+                           ek.to(torch.int32).contiguous(), packed, dep_packed)
+        overflow = torch.zeros((), dtype=torch.int32, device=packed.device)
+        return out[:, 0], out[:, 1:4], overflow
+
+    # -- layout-space interface (state packed for the whole pass) ----------
+    def pack_state(self, hp: HitPoints, prep: HpLayout):
+        """Scatter per-pass state into layout space once: (r2_pad, wgt_pad)."""
+        c_pad = self._c_pad(hp.capacity)
+        r2_pad = torch.full((c_pad,), -1.0, dtype=torch.float32, device=hp.r2.device)
+        r2_pad[prep.g] = torch.where(hp.valid, hp.r2, -1.0)
+        wgt_pad = torch.zeros((c_pad, 3), dtype=torch.float32, device=hp.r2.device)
+        wgt_pad[prep.g] = hp.wgt
+        return r2_pad, wgt_pad
+
+    def unpack_state(self, prep: HpLayout, *cols):
+        """Gather layout-space arrays back to hit-point order."""
+        return tuple(c[prep.g] for c in cols)
+
+    def packed_call(self, r2_pad: torch.Tensor, dep: Deposits, prep: HpLayout):
+        """Layout-space deposit: (cnt_pad, flux_pad, overflow); the caller
+        applies wgt * flux / pi (Raytracer.h:156)."""
+        packed = prep.packed.clone()
+        packed[:, 6] = r2_pad
+        return self._kernel_call(packed, dep, prep)
+
+    def __call__(self, hp: HitPoints, dep: Deposits, prep: HpLayout | None = None):
+        if prep is None:
+            prep = self.prepare(hp)
+        packed = prep.packed.clone()
+        packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+        cnt_pad, fl_pad, overflow = self._kernel_call(packed, dep, prep)
+        cnt, fl = self.unpack_state(prep, cnt_pad, fl_pad)
+        return cnt, hp.wgt * fl / math.pi, overflow
+
+
+def world_bounds_from_scene(scene, margin: float = 4.0 * SEARCH_R,
+                            extra_points=None) -> dict:
+    """Deposit world bounds from the scene's finite geometry (spheres,
+    Bezier control points, lights, the pinned axes of axis-aligned planes,
+    ``extra_points``), padded by ``margin``.  Bounds only affect speed:
+    out-of-range positions clamp into the boundary buckets."""
+    npf = lambda x: x.detach().cpu().numpy().astype(np.float64)
+    pts = [npf(scene.light_pos)]
+    if scene.spheres.count:
+        c = npf(scene.spheres.center)
+        r = npf(scene.spheres.radius)[:, None]
+        pts += [c - r, c + r]
+    if scene.has_bezier:
+        pts.append(npf(scene.bezier.ctrl).reshape(-1, 3))
+    if extra_points is not None:
+        pts.append(np.asarray(extra_points, np.float64).reshape(-1, 3))
+    P = np.concatenate(pts, 0)
+    lo, hi = P.min(0), P.max(0)
+    n = npf(scene.planes.normal)
+    p0 = npf(scene.planes.p0)
+    for i in range(n.shape[0]):
+        ax = int(np.argmax(np.abs(n[i])))
+        if abs(n[i, ax]) > 0.999:       # an axis-aligned plane pins its axis
+            lo[ax] = min(lo[ax], p0[i, ax])
+            hi[ax] = max(hi[ax], p0[i, ax])
+    lo -= margin
+    hi += margin
+    return dict(x_lo=float(lo[0]), x_hi=float(hi[0]),
+                y_lo=float(lo[1]), y_hi=float(hi[1]),
+                z_lo=float(lo[2]), z_hi=float(hi[2]))
+
+
+def make_tile_deposit(**kw) -> DepositTile:
+    """The bench's deposit (``make_pallas_deposit``): tile 256, 1-D banding."""
+    kw.setdefault("tile", 256)
+    kw.setdefault("chunk", 2048)
+    return DepositTile(**kw)

@@ -1,0 +1,201 @@
+"""Deposit: the port's bruteforce oracle and tile deposit (host side + the
+kernel's plain twin) vs the JAX package's ``deposit_bruteforce`` and
+``PallasDepositTile(bucket2d=False, interpret=True)``, on the uniform and
+wall distributions of tests/test_deposit.py; the packed-layout rounds vs
+the hit-point-order rounds.  The CUDA kernel is held against its twin on
+the card in tests/test_torch_cuda.py.
+
+Counts are sums of 0/1 in fp32 and must be equal.  Flux sums agree to
+rtol 2e-4 / atol 1e-4 (the tests/test_deposit.py tolerance: the summation
+order differs between a matmul, a sorted lane walk and JAX's sort, whose
+order among equal keys is unspecified).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_port_util  # noqa: F401  (thread count)
+from raytrace3_tpu.core.types import Deposits as JDeposits
+from raytrace3_tpu.core.types import make_hitpoints as j_make_hitpoints
+from raytrace3_tpu.ops.deposit_pallas import PallasDepositTile
+from raytrace3_tpu.render.deposit import deposit_bruteforce as j_bruteforce
+
+from raytrace3_tpu_torch.convert import (deposits_from_numpy, flatten_to_numpy,
+                                         hitpoints_from_numpy)
+from raytrace3_tpu_torch.ops import deposit_kernel
+from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
+                                                    deposit_tile_plain,
+                                                    make_tile_deposit)
+from raytrace3_tpu_torch.render.deposit import deposit_bruteforce
+
+KW = dict(x_lo=-8.0, x_hi=48.0, y_lo=-8.0, y_hi=88.0)
+
+
+def _random_case(rng, C=300, D=700):
+    """tests/test_deposit.py:14-35."""
+    hp = j_make_hitpoints(C, init_r2=2.0)
+    pos = rng.uniform(0, 40, size=(C, 3)).astype(np.float32)
+    n = rng.normal(size=(C, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    hp = hp.replace(
+        pos=jnp.asarray(pos), n=jnp.asarray(n),
+        wgt=jnp.asarray(rng.uniform(0, 1, size=(C, 3)).astype(np.float32)),
+        valid=jnp.asarray(rng.uniform(size=C) > 0.1),
+        r2=jnp.asarray(rng.uniform(0.5, 2.0, size=C).astype(np.float32)))
+    dn = rng.normal(size=(D, 3)).astype(np.float32)
+    dn /= np.linalg.norm(dn, axis=-1, keepdims=True)
+    dep = JDeposits(
+        pos=jnp.asarray(rng.uniform(0, 40, size=(D, 3)).astype(np.float32)),
+        n=jnp.asarray(dn),
+        flux=jnp.asarray(rng.uniform(0, 5, size=(D, 3)).astype(np.float32)),
+        valid=jnp.asarray(rng.uniform(size=D) > 0.2))
+    return hp, dep
+
+
+def _wall_case(rng, C=500, D=3000):
+    """tests/test_deposit.py:129-145: most deposits on an x = 1 wall."""
+    hp, dep = _random_case(rng, C=C, D=D)
+    wallish = rng.uniform(size=D) < 0.6
+    pos = np.asarray(dep.pos).copy()
+    pos[wallish, 0] = 1.0 + rng.uniform(-0.05, 0.05, wallish.sum())
+    pos[wallish, 1] = rng.uniform(0, 80, wallish.sum())
+    pos[wallish, 2] = rng.uniform(0, 160, wallish.sum())
+    hpp = np.asarray(hp.pos).copy()
+    wh = rng.uniform(size=C) < 0.5
+    hpp[wh, 0] = 1.0
+    hpp[wh, 1] = rng.uniform(0, 80, wh.sum())
+    hpp[wh, 2] = rng.uniform(0, 160, wh.sum())
+    return hp.replace(pos=jnp.asarray(hpp)), dep.replace(pos=jnp.asarray(pos))
+
+
+def _port(hp, dep, device="cpu"):
+    return (hitpoints_from_numpy(flatten_to_numpy(hp), device),
+            deposits_from_numpy(flatten_to_numpy(dep), device))
+
+
+def _check(cnt, tao, want_cnt, want_tao):
+    np.testing.assert_array_equal(np.asarray(cnt), np.asarray(want_cnt))
+    np.testing.assert_allclose(np.asarray(tao), np.asarray(want_tao),
+                               rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["uniform", "wall"])
+def test_bruteforce_matches_jax(rng, case):
+    hp, dep = (_random_case if case == "uniform" else _wall_case)(rng)
+    want = j_bruteforce(hp, dep)
+    _check(*deposit_bruteforce(*_port(hp, dep), chunk=1000), *want)
+
+
+@pytest.mark.parametrize("case", ["uniform", "wall"])
+@pytest.mark.parametrize("tile,chunk", [(32, 128), (128, 256)])
+def test_tile_deposit_matches_pallas_and_bruteforce(rng, case, tile, chunk):
+    hp, dep = (_random_case if case == "uniform" else _wall_case)(rng)
+    php, pdep = _port(hp, dep)
+    got_cnt, got_tao, ovf = DepositTile(tile=tile, chunk=chunk, **KW)(php, pdep)
+    assert int(ovf) == 0
+    jd = PallasDepositTile(tile=tile, chunk=chunk, bucket2d=False,
+                           interpret=True, **KW)
+    want_cnt, want_tao, _ = jax.jit(jd)(hp, dep)
+    _check(got_cnt.numpy(), got_tao.numpy(), want_cnt, want_tao)
+    bf_cnt, bf_tao = deposit_bruteforce(php, pdep)
+    _check(got_cnt.numpy(), got_tao.numpy(), bf_cnt.numpy(), bf_tao.numpy())
+
+
+def test_host_side_matches_pallas(rng):
+    """prepare / _dep_sorted / _window_lanes agree with the JAX host side:
+    layout size, per-hit-point tile assignment, deposit keys and packing,
+    and the tiles' interval lengths."""
+    hp, dep = _wall_case(rng)
+    php, pdep = _port(hp, dep)
+    pd = DepositTile(tile=32, chunk=128, **KW)
+    jd = PallasDepositTile(tile=32, chunk=128, bucket2d=False, interpret=True, **KW)
+    assert pd._c_pad(hp.capacity) == jd._c_pad(hp.capacity)
+    assert (pd.n_buckets, pd.y_stride, pd._sentinel_key()) == \
+        (jd.n_buckets, jd.y_stride, jd._sentinel_key())
+    prep_p, prep_j = pd.prepare(php), jd.prepare(hp)
+    valid = np.asarray(hp.valid)
+    # same tile for every valid hit point (order within a bucket may differ)
+    np.testing.assert_array_equal((prep_p.g.numpy() // 32)[valid],
+                                  (np.asarray(prep_j.g) // 32)[valid])
+    np.testing.assert_array_equal(prep_p.lo_keys.numpy(), np.asarray(prep_j.lo_keys))
+    np.testing.assert_array_equal(prep_p.hi_keys.numpy(), np.asarray(prep_j.hi_keys))
+    dk_p, dp_p, Dp_p = pd._dep_sorted(pdep, 128)
+    dk_j, _, dp_j, Dp_j = jd._dep_sorted(dep, 128)
+    assert Dp_p == Dp_j
+    np.testing.assert_array_equal(dk_p.numpy(), np.asarray(dk_j))
+    np.testing.assert_array_equal(np.sort(dp_p.numpy(), 1), np.sort(np.asarray(dp_j), 1))
+    n_tiles = prep_p.packed.shape[0] // 32
+    sk_p, ek_p = pd._window_lanes(prep_p, dk_p, n_tiles)
+    sk_j, ek_j = jd._window_lanes(prep_j, dk_j, n_tiles)
+    np.testing.assert_array_equal(sk_p.numpy(), np.asarray(sk_j))
+    np.testing.assert_array_equal(ek_p.numpy(), np.asarray(ek_j))
+
+
+def test_empty_and_invalid(rng):
+    hp, dep = _random_case(rng, C=100, D=200)
+    php, pdep = _port(hp, dep)
+    pd = make_tile_deposit(**KW)
+    cnt, tao, _ = pd(php, pdep.replace(valid=torch.zeros_like(pdep.valid)))
+    assert float(cnt.abs().sum()) == 0.0 and float(tao.abs().sum()) == 0.0
+    cnt, tao, _ = pd(php.replace(valid=torch.zeros_like(php.valid)), pdep)
+    assert float(cnt.abs().sum()) == 0.0
+    empty = pdep.replace(pos=pdep.pos[:0], n=pdep.n[:0], flux=pdep.flux[:0],
+                         valid=pdep.valid[:0])
+    cnt, tao, _ = pd(php, empty)
+    assert float(cnt.abs().sum()) == 0.0
+
+
+def test_plain_step_size_does_not_change_the_result(rng):
+    hp, dep = _wall_case(rng)
+    php, pdep = _port(hp, dep)
+    pd = DepositTile(tile=32, chunk=128, **KW)
+    prep = pd.prepare(php)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(php.valid, php.r2, -1.0)
+    dkeys, dep_packed, _ = pd._dep_sorted(pdep, 128)
+    sk, ek = pd._window_lanes(prep, dkeys, packed.shape[0] // 32)
+    sk, ek = sk.int(), ek.int()
+    a = deposit_tile_plain(sk, ek, packed, dep_packed)
+    b = deposit_tile_plain(sk, ek, packed, dep_packed, pairs_per_step=32 * 7)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    before = deposit_kernel.KERNEL.launches
+    np.testing.assert_array_equal(deposit_tile(sk, ek, packed, dep_packed).numpy(),
+                                  a.numpy())
+    assert deposit_kernel.KERNEL.launches == before
+
+
+def test_packed_rounds_match_hp_space(rng):
+    """photon_rounds in layout space (pack_state / packed_call / one unpack)
+    equals the hit-point-order path with the same kernel and draws
+    (tests/test_deposit.py:399-449)."""
+    from raytrace3_tpu_torch.core.sampling import GeneratorDraws
+    from raytrace3_tpu_torch.render.camera import emit_rays
+    from raytrace3_tpu_torch.render.eye import eye_pass
+    from raytrace3_tpu_torch.render.sppm import photon_rounds
+    from raytrace3_tpu_torch.scenes import full, reference_camera
+
+    scene = full(atlas_res=16).replace(bezier_compact_frac=0.2)
+    org, dirs = emit_rays(reference_camera(16, 16))
+    php, _ = eye_pass(scene, org, dirs, 512, 4, compact_schedule=((1, 0.5),))
+    depo = make_tile_deposit(tile=128, chunk=256, x_lo=-4.0, x_hi=104.0,
+                             y_lo=-6.0, y_hi=88.0)
+
+    class HpSpace:                         # hides packed_call
+        returns_aux = True
+        prepare = depo.prepare
+
+        def __call__(self, h, d, prep=None):
+            return depo(h, d, prep=prep)
+
+    run = lambda fn: photon_rounds(scene, GeneratorDraws(torch.Generator().manual_seed(5)),
+                                   php, 2, 256, max_depth=4, deposit_fn=fn)
+    hp_p, em_p, dr_p = run(depo)
+    hp_r, em_r, dr_r = run(HpSpace())
+    assert float(em_p) == float(em_r) and int(dr_p) == int(dr_r) == 0
+    assert float(hp_p.nphot.sum()) > 0
+    np.testing.assert_allclose(hp_p.r2.numpy(), hp_r.r2.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(hp_p.tao.numpy(), hp_r.tao.numpy(), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(hp_p.nphot.numpy(), hp_r.nphot.numpy(), rtol=1e-6)
