@@ -84,6 +84,20 @@ class ReplayDraws:
         return len(self._queue)
 
 
+class RecordingDraws:
+    """Draws from another source, kept (on the CPU) so that a second run
+    can replay them with :class:`ReplayDraws`."""
+
+    def __init__(self, source):
+        self.source = source
+        self.arrays = []
+
+    def uniform(self, shape, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+        u = self.source.uniform(shape, lo, hi)
+        self.arrays.append(u.cpu().numpy().copy())
+        return u
+
+
 def as_draws(rng):
     """A draws source from a ``torch.Generator`` or a draws source."""
     return GeneratorDraws(rng) if isinstance(rng, torch.Generator) else rng

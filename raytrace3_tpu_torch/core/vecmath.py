@@ -2,13 +2,6 @@
 
 Port of ``raytrace3_tpu/core/vecmath.py``: the same branchless formulas, in
 the same operation order, with ``torch.where`` for ``jnp.where``.
-
-Rounding.  The JAX reference's compiled code contracts ``a * b + c`` into
-one fused multiply-add, so its dot products are FMA chains and its hit
-positions ``o + t d`` are rounded once.  Those last bits decide self-hits
-(an origin an ulp inside a sphere re-hits it) and where far-travelling
-photons land, so the port rounds the same way there: :func:`fma` and
-:func:`dot` below.
 """
 
 from __future__ import annotations
@@ -21,20 +14,8 @@ M_EPS = 1e-4
 MAX_DIST = 1e9
 
 
-def fma(a, b, c) -> torch.Tensor:
-    """``a * b + c`` with one rounding (a fused multiply-add): evaluated in
-    float64, where a product of two float32 values is exact, and rounded
-    once to float32."""
-    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
-            + torch.as_tensor(c).double()).float()
-
-
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Trailing-axis dot product as an FMA chain, first product first."""
-    acc = a[..., 0] * b[..., 0]
-    for i in range(1, a.shape[-1]):
-        acc = fma(a[..., i], b[..., i], acc)
-    return acc
+    return (a * b).sum(-1)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,7 +50,7 @@ def dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """``d - 2 (d.n) n`` (Vec3.h:80-84)."""
-    return fma(-2.0 * dot(d, n)[..., None], n, d)
+    return d - 2.0 * dot(d, n)[..., None] * n
 
 
 def refract(d: torch.Tensor, n: torch.Tensor, eta) -> torch.Tensor:

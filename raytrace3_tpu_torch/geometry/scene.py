@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.types import HitRecord, Materials, Record
-from ..core.vecmath import MAX_DIST, fma, normalize
+from ..core.vecmath import MAX_DIST, normalize
 from ..ops.onehot import pick_columns, take_rows
 from ..textures.texture import sample_atlas
 from .bezier import BezierObject, intersect_bezier
@@ -86,7 +86,7 @@ def intersect_scene(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
     hit = t < MAX_DIST
     obj_id = torch.where(hit, obj, -1).to(torch.int32)
     # Clamp the sentinel distance before forming positions.
-    pos = fma(torch.clamp_max(t, 1e6)[:, None], dir, org)
+    pos = org + torch.clamp_max(t, 1e6)[:, None] * dir
 
     is_plane = obj < P
     is_sphere = (obj >= P) & (obj < P + S)

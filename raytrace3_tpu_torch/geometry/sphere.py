@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.types import Record
-from ..core.vecmath import M_EPS, MAX_DIST, cross, dot, fma, normalize
+from ..core.vecmath import M_EPS, MAX_DIST, cross, dot, normalize
 from ..ops.onehot import take_rows
 
 
@@ -46,10 +46,7 @@ def intersect_spheres(org: torch.Tensor, dir: torch.Tensor, spheres: Spheres):
     """
     L = spheres.center[None, :, :] - org[:, None, :]          # (R, S, 3)
     proj = dot(L, dir[:, None, :])
-    # r^2 - (|L|^2 - proj^2), the inner difference fused as the reference's
-    # compiled code fuses it: the root of a ray leaving a surface lies within
-    # a few ulps of the M_EPS self-hit margin.
-    det2 = spheres.radius[None, :] ** 2 - fma(-proj, proj, dot(L, L))
+    det2 = spheres.radius[None, :] ** 2 - (dot(L, L) - proj * proj)
     miss = det2 < M_EPS
     det = torch.sqrt(torch.where(miss, 1.0, det2))
     d1 = proj - det

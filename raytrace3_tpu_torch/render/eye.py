@@ -76,39 +76,46 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
                              newton_fn, pixel_offset, compact_schedule)
 
 
+def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None):
+    """One segment of the compact eye wavefront.
+
+    ``lanes`` = (org, dir, wgt, pixel, active), the JAX pass's scan carry;
+    ``fetch_mat`` from :func:`_eye_material_lanes`.  Returns (next lanes,
+    secondaries dropped, hit-point candidate rows (w, 11): pos3 | n3 |
+    wgt3 | pixel | valid, pixel in f32 being exact below 2^24).
+    """
+    o, d, wgt, px, act = lanes
+    dtype = o.dtype
+    rec = intersect_scene(scene, o, d, newton_fn=newton_fn)
+    obj = torch.clamp(rec.obj_id, 0, scene.n_objects - 1)
+    isd, isl, isr, m_diff, m_refl, m_refr, rn = fetch_mat(obj)
+    hit = rec.hit & act
+
+    diff_v = hit & isd
+    rows = torch.cat([rec.pos, rec.n, rec.color * wgt * m_diff,
+                      px.to(dtype)[:, None], diff_v.to(dtype)[:, None]], 1)
+
+    refl_v = hit & isl
+    refr_v = hit & isr
+    d_refl = normalize(reflect(d, rec.n))
+    w_refl = rec.color * wgt * m_refl
+    eta = eta_from_refrn(rn, rec.inside)
+    n_eff = torch.where(rec.inside[:, None], -rec.n, rec.n)
+    d_refr = normalize(refract(d, n_eff, eta))
+    w_refr = rec.color * wgt * m_refr
+
+    prim_v = refl_v | refr_v
+    prim_d = torch.where(refl_v[:, None], d_refl, d_refr)
+    prim_w = torch.where(refl_v[:, None], w_refl, w_refr)
+    n_dropped = (refl_v & refr_v).sum(dtype=torch.int32)
+    return (rec.pos, prim_d, prim_w, px, prim_v), n_dropped, rows
+
+
 def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
                       newton_fn, pixel_offset, schedule):
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
     fetch_mat = _eye_material_lanes(scene)
-
-    def step(lanes):
-        o, d, wgt, px, act = lanes
-        rec = intersect_scene(scene, o, d, newton_fn=newton_fn)
-        obj = torch.clamp(rec.obj_id, 0, scene.n_objects - 1)
-        isd, isl, isr, m_diff, m_refl, m_refr, rn = fetch_mat(obj)
-        hit = rec.hit & act
-
-        diff_v = hit & isd
-        # Candidate row: pos3 | n3 | wgt3 | pixel | valid (pixel in f32 is
-        # exact below 2^24).
-        rows = torch.cat([rec.pos, rec.n, rec.color * wgt * m_diff,
-                          px.to(dtype)[:, None], diff_v.to(dtype)[:, None]], 1)
-
-        refl_v = hit & isl
-        refr_v = hit & isr
-        d_refl = normalize(reflect(d, rec.n))
-        w_refl = rec.color * wgt * m_refl
-        eta = eta_from_refrn(rn, rec.inside)
-        n_eff = torch.where(rec.inside[:, None], -rec.n, rec.n)
-        d_refr = normalize(refract(d, n_eff, eta))
-        w_refr = rec.color * wgt * m_refr
-
-        prim_v = refl_v | refr_v
-        prim_d = torch.where(refl_v[:, None], d_refl, d_refr)
-        prim_w = torch.where(refl_v[:, None], w_refl, w_refr)
-        n_dropped = (refl_v & refr_v).sum(dtype=torch.int32)
-        return (rec.pos, prim_d, prim_w, px, prim_v), n_dropped, rows
 
     lanes = (org, dir, torch.ones((R, 3), dtype=dtype, device=dev),
              torch.arange(R, dtype=torch.int32, device=dev) + pixel_offset,
@@ -138,7 +145,8 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
                      (lane_rows[:, 10] > 0.5) & ok)
             dropped = dropped + torch.clamp_min(n_act - w, 0)
         for _ in range(n_segs):
-            lanes, n_dropped, rows = step(lanes)
+            lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes,
+                                                 newton_fn)
             dropped = dropped + n_dropped
             all_rows.append(rows)
 

@@ -69,67 +69,84 @@ def photon_trace_regen(scene: Scene, rng, light_pos: torch.Tensor,
     draws = as_draws(rng)
     dev = light_pos.device
     L = light_pos.shape[0]
-    N = L * n_photons
     segs = max_depth + 1
     if state is None:
         state = regen_state_init(L, n_photons, dev)
     fetch_mat = _material_lanes(scene)
 
-    o, d, f, alive, depth, rr_off = state
-    emitted = torch.zeros((L,), dtype=torch.float32, device=dev)
+    carry = tuple(state) + (torch.zeros((L,), dtype=torch.float32, device=dev),)
     records = []
     for _ in range(segs):
-        # Refill dead lanes with fresh photons, lights assigned round-robin.
-        need = ~alive
-        n_need = need.sum(dtype=torch.int32)
-        z = draws.uniform((N,), -1.0, 1.0)
-        phi = draws.uniform((N,), 0.0, TWO_PI)
-        ed = uniform_sphere(z, phi)                        # Light.h:9 law
-        if L == 1:
-            eo = light_pos[0].expand(N, 3)
-            ef = (light_color[0] * (4.0 * math.pi)).expand(N, 3)
-            emitted = emitted + n_need.to(torch.float32)[None]
-        else:
-            rank = torch.cumsum(need.to(torch.int32), 0) - 1
-            lid = (rr_off + torch.clamp_min(rank, 0)) % L
-            oh = onehot_f32(lid, L) * need.to(torch.float32)[:, None]
-            eo = take_rows(light_pos, lid)
-            ef = take_rows(light_color, lid) * (4.0 * math.pi)
-            emitted = emitted + oh.sum(0)
-        nd = need[:, None]
-        o = torch.where(nd, eo, o)
-        d = torch.where(nd, ed, d)
-        f = torch.where(nd, ef, f)
-        depth = torch.where(need, 0, depth)
-        rr_off = (rr_off + n_need) % L
-
-        rec = intersect_scene(scene, o, d, newton_fn=newton_fn)
-        obj = torch.clamp(rec.obj_id, 0, scene.n_objects - 1)
-        dp, rp, rr, isd, rn = fetch_mat(obj)
-        records.append((rec.pos, rec.n, f, rec.hit & isd))
-
-        branch = roulette(draws.uniform((N,)), dp, rp, rr)
-        u1 = draws.uniform((N,))
-        u2 = draws.uniform((N,))
-        d_diff = cosine_hemisphere(u1, u2, rec.n)
-        d_refl = normalize(reflect(d, rec.n))
-        eta = eta_from_refrn(rn, rec.inside)
-        n_eff = torch.where(rec.inside[:, None], -rec.n, rec.n)
-        d_refr = normalize(refract(d, n_eff, eta))
-        new_d = torch.where((branch == 0)[:, None], d_diff,
-                            torch.where((branch == 1)[:, None], d_refl, d_refr))
-        new_f = rec.color * f
-        if debias_roulette:
-            allp = dp + rp + rr
-            bp = torch.where(branch == 0, dp,
-                             torch.where(branch == 1, rp, rr)) / torch.where(
-                                 allp > 0, allp, 1.0)
-            new_f = new_f / torch.where(bp > 1e-8, bp, 1.0)[:, None]
-
-        depth = depth + 1
-        o, d, f = rec.pos, new_d, new_f
-        alive = rec.hit & (depth < segs)
-
+        carry, rec = regen_segment(scene, fetch_mat, draws, light_pos,
+                                   light_color, carry, segs,
+                                   debias_roulette, newton_fn)
+        records.append(rec)
+    *state, emitted = carry
     pos, n, flux, valid = (torch.cat(x, 0) for x in zip(*records))
     deps = Deposits(pos=pos, n=n, flux=flux, valid=valid)
-    return deps, (o, d, f, alive, depth, rr_off), emitted
+    return deps, tuple(state), emitted
+
+
+def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
+                  light_color: torch.Tensor, carry, segs: int,
+                  debias_roulette: bool = False, newton_fn=None):
+    """One segment of the walk: refill dead lanes, intersect, record a
+    deposit, roulette one continuation.
+
+    ``carry`` = (org, dir, flux, alive, depth, rr_offset, emitted), the JAX
+    walk's scan carry; ``fetch_mat`` from :func:`_material_lanes`.  Returns
+    (new carry, deposit record (pos, n, flux, valid)).
+    """
+    o, d, f, alive, depth, rr_off, emitted = carry
+    L = light_pos.shape[0]
+    N = o.shape[0]
+    # Refill dead lanes with fresh photons, lights assigned round-robin.
+    need = ~alive
+    n_need = need.sum(dtype=torch.int32)
+    z = draws.uniform((N,), -1.0, 1.0)
+    phi = draws.uniform((N,), 0.0, TWO_PI)
+    ed = uniform_sphere(z, phi)                            # Light.h:9 law
+    if L == 1:
+        eo = light_pos[0].expand(N, 3)
+        ef = (light_color[0] * (4.0 * math.pi)).expand(N, 3)
+        emitted = emitted + n_need.to(torch.float32)[None]
+    else:
+        rank = torch.cumsum(need.to(torch.int32), 0) - 1
+        lid = (rr_off + torch.clamp_min(rank, 0)) % L
+        oh = onehot_f32(lid, L) * need.to(torch.float32)[:, None]
+        eo = take_rows(light_pos, lid)
+        ef = take_rows(light_color, lid) * (4.0 * math.pi)
+        emitted = emitted + oh.sum(0)
+    nd = need[:, None]
+    o = torch.where(nd, eo, o)
+    d = torch.where(nd, ed, d)
+    f = torch.where(nd, ef, f)
+    depth = torch.where(need, 0, depth)
+    rr_off = (rr_off + n_need) % L
+
+    rec = intersect_scene(scene, o, d, newton_fn=newton_fn)
+    obj = torch.clamp(rec.obj_id, 0, scene.n_objects - 1)
+    dp, rp, rr, isd, rn = fetch_mat(obj)
+    record = (rec.pos, rec.n, f, rec.hit & isd)
+
+    branch = roulette(draws.uniform((N,)), dp, rp, rr)
+    u1 = draws.uniform((N,))
+    u2 = draws.uniform((N,))
+    d_diff = cosine_hemisphere(u1, u2, rec.n)
+    d_refl = normalize(reflect(d, rec.n))
+    eta = eta_from_refrn(rn, rec.inside)
+    n_eff = torch.where(rec.inside[:, None], -rec.n, rec.n)
+    d_refr = normalize(refract(d, n_eff, eta))
+    new_d = torch.where((branch == 0)[:, None], d_diff,
+                        torch.where((branch == 1)[:, None], d_refl, d_refr))
+    new_f = rec.color * f
+    if debias_roulette:
+        allp = dp + rp + rr
+        bp = torch.where(branch == 0, dp,
+                         torch.where(branch == 1, rp, rr)) / torch.where(
+                             allp > 0, allp, 1.0)
+        new_f = new_f / torch.where(bp > 1e-8, bp, 1.0)[:, None]
+
+    depth = depth + 1
+    alive = rec.hit & (depth < segs)
+    return (rec.pos, new_d, new_f, alive, depth, rr_off, emitted), record

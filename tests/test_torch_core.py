@@ -211,17 +211,3 @@ def test_replay_draws_checks_shape():
         dr.uniform((4,))
     with pytest.raises(RuntimeError):
         dr.uniform((1,))
-
-
-def test_dot_and_fma_round_like_compiled_jax(rng):
-    """The port rounds ``a * b + c`` once, as XLA's compiled code does
-    (core/vecmath.py): dot products equal jitted JAX bit for bit, and the
-    fused rounding differs from two roundings somewhere."""
-    a, b = _vecs(rng, 4096), _vecs(rng, 4096, unit=True)
-    want = np.asarray(jax.jit(jvm.dot)(a, b))
-    np.testing.assert_array_equal(vm.dot(_t(a), _t(b)).numpy(), want)
-    x, y, z = (_t(a[:, i]) for i in range(3))
-    fused = vm.fma(x, y, z).numpy()
-    np.testing.assert_array_equal(fused, (a[:, 0].astype(np.float64) * a[:, 1]
-                                          + a[:, 2]).astype(np.float32))
-    assert (fused != (x * y + z).numpy()).any()

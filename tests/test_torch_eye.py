@@ -3,17 +3,13 @@ the JAX package's on ``full`` at 32 x 32 reference-camera rays, both with
 the Newton kernel contract at 8 restarts (JAX: the Pallas kernel in
 interpret mode).  The pass draws no random numbers.
 
-The port rounds dot products, hit positions and the sphere discriminant as
-XLA's fused multiply-adds do (core/vecmath.py), but other operations
-(refraction, Newton roots) still differ by an ulp, and the reference's
-self-hit margin M_EPS = 1e-4 is within a few ulps of float32 positions at
-scene scale: on ~0.6% of the pixels a bounce through the glass sphere
-re-hits a surface on one side and not on the other, and that pixel's path
-diverges.  So the test compares pixel by pixel: at most
-MAX_DIVERGED of the pixels may differ in their hit points, and every other
-pixel's hit points agree (positions to 2e-3, since Newton roots agree to
-~1e-3 at t ~ 200; normals and weights to 1e-4).  ``dropped`` must be equal
-and ``count`` may differ by at most the diverged pixels.
+The walk is held to JAX's one segment at a time
+(``raytrace3_tpu_torch.testing``): each of the port's segments runs on
+JAX's lane state for that segment, every decision must agree exactly and
+every float to the stated tolerances, lane by lane, and JAX's output is
+carried on.  The compaction between stages and the hit-point scatter then
+run on identical data, so the hit-point buffer and the counters must equal
+JAX's exactly.
 """
 
 import jax
@@ -21,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import port_scene
+from torch_port_util import jax_walk_steps, port_scene
 from raytrace3_tpu import scenes as jscenes
 from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
 from raytrace3_tpu.render import eye as jeye
@@ -29,34 +25,11 @@ from raytrace3_tpu.render.camera import emit_rays as j_emit_rays
 
 from raytrace3_tpu_torch.ops.newton_kernel import make_newton
 from raytrace3_tpu_torch.render import eye
+from raytrace3_tpu_torch.testing import MAX_FLIPS, pinned_segments
 
 #: The bench's schedule (bench.py:118), and one that clips survivors.
 SCHEDULES = {"bench": ((1, 0.25), (4, 0.04), (6, 0.02)),
              "clipping": ((1, 0.1), (3, 0.05))}
-#: Pixels whose paths may diverge: 0.8% of 32 x 32 (6 were seen).
-MAX_DIVERGED = 8
-
-
-def _by_pixel(hp):
-    """pixel -> (k, 9) array of its hit points' pos, n, wgt in slot order."""
-    valid = np.asarray(hp["valid"])
-    rows = np.concatenate([np.asarray(hp[f])[valid] for f in ("pos", "n", "wgt")], 1)
-    pix = np.asarray(hp["pixel"])[valid]
-    return {p: rows[pix == p] for p in np.unique(pix)}
-
-
-def _diverged_pixels(hp_p, hp_j):
-    a, b = _by_pixel(hp_p), _by_pixel(hp_j)
-    bad = 0
-    for p in set(a) | set(b):
-        x, y = a.get(p), b.get(p)
-        if x is None or y is None or x.shape != y.shape:
-            bad += 1
-            continue
-        tol = np.r_[[2e-3] * 3, [1e-4] * 6]
-        if (np.abs(x - y) > tol + 1e-5 * np.abs(y)).any():
-            bad += 1
-    return bad
 
 
 @pytest.mark.parametrize("n_rays", [1024, 4096, 262144])
@@ -72,24 +45,27 @@ def test_eye_pass_compact_matches_jax(name):
     js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.09)
     org, d = j_emit_rays(jscenes.reference_camera(32, 32))
     cap = int(1024 * 1.3)
-    hp_j, st_j = jax.jit(lambda o, dd: jeye.eye_pass(
-        js, o, dd, cap, newton_fn=make_newton_pallas(interpret=True),
-        compact_schedule=sched))(org, d)
-    hp_p, st_p = eye.eye_pass(port_scene(js), torch.as_tensor(np.array(org)),
-                              torch.as_tensor(np.array(d)), cap,
-                              newton_fn=make_newton(), compact_schedule=sched)
-    fields = ("pos", "n", "wgt", "pixel", "valid")
-    diverged = _diverged_pixels({f: getattr(hp_p, f).numpy() for f in fields},
-                                {f: np.asarray(getattr(hp_j, f)) for f in fields})
-    print(f"{name}: {diverged} diverged pixels, count {int(st_p['count'])} "
-          f"vs {int(st_j['count'])}")
-    assert diverged <= MAX_DIVERGED
+    with jax_walk_steps() as steps:
+        hp_j, st_j = jax.jit(lambda o, dd: jeye.eye_pass(
+            js, o, dd, cap, newton_fn=make_newton_pallas(interpret=True),
+            compact_schedule=sched))(org, d)
+        jax.block_until_ready(hp_j)
+    assert len(steps["eye"]) == 14
+    with pinned_segments(eye_steps=steps["eye"]) as report:
+        hp_p, st_p = eye.eye_pass(port_scene(js), torch.as_tensor(np.array(org)),
+                                  torch.as_tensor(np.array(d)), cap,
+                                  newton_fn=make_newton(), compact_schedule=sched)
+    print(f"{name}: count {int(st_p['count'])}, {report}")
+    assert report.segments["eye"] == 14
+    assert report.lanes["self-hit flip"] <= MAX_FLIPS
     assert int(st_j["count"]) > 500
-    assert abs(int(st_p["count"]) - int(st_j["count"])) <= diverged
-    assert int(st_p["dropped"]) == int(st_j["dropped"])
+    for k in ("count", "dropped"):
+        assert int(st_p[k]) == int(st_j[k]), k
     if name == "clipping":
         assert int(st_p["dropped"]) > 0
-    np.testing.assert_array_equal(hp_p.r2.numpy(), np.asarray(hp_j.r2))
+    for f in ("pos", "n", "wgt", "pixel", "valid", "r2", "tao", "nphot"):
+        np.testing.assert_array_equal(getattr(hp_p, f).numpy(),
+                                      np.asarray(getattr(hp_j, f)), err_msg=f)
 
 
 def test_k_slot_path_is_not_ported():

@@ -3,33 +3,22 @@ package's on ``full`` (photon-pass compaction 0.05, the Newton kernel
 contract at 8 restarts on both sides), with JAX's own draws replayed into
 the port (derived with JAX's split structure, tests/torch_port_util.py).
 
-The walk is compared lane by lane.  Both sides take the same decisions
-from the same uniforms, but the scene's planes are unbounded and the back
-wall is a mirror: photons that leave the room travel up to 1e6 units, where
-one float32 ulp is ~0.06, and come back; and a bounce origin an ulp inside
-a sphere re-hits it.  XLA and PyTorch round a few operations differently
-(Newton roots, refraction), so a few lanes take another path after some
-segment.  A lane *diverges* at the first segment where its deposit's
-validity differs or its position differs by more than POS_ATOL + POS_RTOL
-|pos|.  The test holds:
-
-  * at most MAX_DIVERGED_FRAC of the lanes diverge (measured: ~7-9%, most
-    after a far-field bounce);
-  * every other lane agrees in every segment: validity exactly, position
-    as above, normal to 1e-4 and flux to 5e-3 relative (the teapot's
-    texture lookup takes the ray distance as v, a reference quirk, so a
-    Newton root that differs by ~1e-3 moves the colour it multiplies in);
-  * per-light ``emitted`` differs by no more than the refills the diverged
-    lanes could account for (each lane refills at most once per segment
-    after it diverged); on the lanes that never diverge, alive and depth
-    are equal.
+The walk is held to JAX's one segment at a time
+(``raytrace3_tpu_torch.testing``): each of the port's segments runs on
+JAX's lane state for that segment (origin, direction, flux, alive, depth,
+refill offset, emitted), every decision must agree exactly (deposit
+validity, refill, alive, depth, per-light ``emitted``) and every float to
+the stated tolerances, lane by lane, and JAX's output is carried on.  The
+round's deposits, final state and ``emitted`` then equal JAX's exactly.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
-from torch_port_util import port_scene, regen_round_draws
+from torch_port_util import jax_walk_steps, port_scene, regen_round_draws
 from raytrace3_tpu import scenes as jscenes
 from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
 from raytrace3_tpu.render import photon as jphoton
@@ -37,70 +26,62 @@ from raytrace3_tpu.render import photon as jphoton
 from raytrace3_tpu_torch.core.sampling import ReplayDraws
 from raytrace3_tpu_torch.ops.newton_kernel import make_newton
 from raytrace3_tpu_torch.render import photon
+from raytrace3_tpu_torch.testing import MAX_FLIPS, pinned_segments
 
 N = 1024
 SEGS = 14
-POS_ATOL, POS_RTOL = 2e-3, 1e-5
-N_SPLIT = 1e-2
-MAX_DIVERGED_FRAC = 0.12
+#: A second light for the round-robin refill (photon.py:186-192).
+LIGHTS2 = ([[50.0, 60.0, 85.0], [30.0, 50.0, 120.0]],
+           [[2500.0] * 3, [1000.0, 2000.0, 2000.0]])
 
 
-def _first_divergence(dep_p, dep_j):
-    """(SEGS,) -> per lane, the first segment that diverges, or SEGS."""
-    v_p = dep_p.valid.numpy().reshape(SEGS, N)
-    v_j = np.asarray(dep_j.valid).reshape(SEGS, N)
-    p_p = dep_p.pos.numpy().reshape(SEGS, N, 3)
-    p_j = np.asarray(dep_j.pos).reshape(SEGS, N, 3)
-    n_p = dep_p.n.numpy().reshape(SEGS, N, 3)
-    n_j = np.asarray(dep_j.n).reshape(SEGS, N, 3)
-    off = ((np.abs(p_p - p_j) > POS_ATOL + POS_RTOL * np.abs(p_j)).any(-1)
-           | (np.abs(n_p - n_j) > N_SPLIT).any(-1))
-    bad = (v_p != v_j) | (off & v_j)
-    return np.where(bad.any(0), bad.argmax(0), SEGS)
+def _round_matches_jax(light_pos, light_color, n_photons, seed):
+    js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.05)
+    lp, lc = jnp.asarray(light_pos, jnp.float32), jnp.asarray(light_color, jnp.float32)
+    key = jax.random.key(seed)
+    with jax_walk_steps() as steps:
+        dep_j, st_j, em_j = jax.jit(lambda k: jphoton.photon_trace_regen(
+            js, k, lp, lc, n_photons, None, SEGS - 1,
+            newton_fn=make_newton_pallas(interpret=True)))(key)
+        jax.block_until_ready(dep_j)
+    assert len(steps["photon"]) == SEGS
+
+    ps = port_scene(js)
+    draws = ReplayDraws(regen_round_draws(key, lp.shape[0] * n_photons, SEGS))
+    with pinned_segments(photon_steps=steps["photon"]) as report:
+        dep_p, st_p, em_p = photon.photon_trace_regen(
+            ps, draws, torch.as_tensor(np.array(lp)), torch.as_tensor(np.array(lc)),
+            n_photons, None, SEGS - 1, newton_fn=make_newton())
+    print(report)
+    assert draws.remaining == 0
+    assert report.segments["photon"] == SEGS
+    assert report.lanes["self-hit flip"] <= MAX_FLIPS
+    for f in ("pos", "n", "flux", "valid"):
+        np.testing.assert_array_equal(getattr(dep_p, f).numpy(),
+                                      np.asarray(getattr(dep_j, f)), err_msg=f)
+    for i, (got, want) in enumerate(zip(st_p, st_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(i))
+    np.testing.assert_array_equal(em_p.numpy(), np.asarray(em_j))
+    assert float(em_p.sum()) > lp.shape[0] * n_photons
+    assert int(dep_p.valid.sum()) > 4 * n_photons
+    return report
 
 
 def test_regen_round_matches_jax_with_replayed_draws():
-    js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.05)
-    key = jax.random.key(7)
-    dep_j, st_j, em_j = jax.jit(lambda k: jphoton.photon_trace_regen(
-        js, k, js.light_pos, js.light_color, N, None, SEGS - 1,
-        newton_fn=make_newton_pallas(interpret=True)))(key)
+    js = jscenes.full(atlas_res=32)
+    _round_matches_jax(js.light_pos, js.light_color, N, seed=7)
 
-    ps = port_scene(js)
-    draws = ReplayDraws(regen_round_draws(key, N, SEGS))
-    dep_p, st_p, em_p = photon.photon_trace_regen(
-        ps, draws, ps.light_pos, ps.light_color, N, None, SEGS - 1,
-        newton_fn=make_newton())
-    assert draws.remaining == 0
 
-    first = _first_divergence(dep_p, dep_j)
-    same = first == SEGS
-    print(f"diverged lanes {int((~same).sum())} of {N}; emitted "
-          f"{em_p.numpy()} vs {np.asarray(em_j)}")
-    assert (~same).mean() <= MAX_DIVERGED_FRAC
-    assert float(em_p[0]) > N
-    slack = (SEGS - first[~same]).sum()
-    np.testing.assert_allclose(em_p.numpy(), np.asarray(em_j), rtol=0, atol=slack)
-    for name, i in (("alive", 3), ("depth", 4)):
-        np.testing.assert_array_equal(st_p[i].numpy()[same],
-                                      np.asarray(st_j[i])[same], err_msg=name)
-
-    v_p = dep_p.valid.numpy().reshape(SEGS, N)
-    assert v_p[:, same].sum() > 4 * N
-    for f, rtol, atol in (("pos", POS_RTOL, POS_ATOL), ("n", 0, 1e-4),
-                          ("flux", 5e-3, 1e-3)):
-        got = getattr(dep_p, f).numpy().reshape(SEGS, N, 3)[:, same]
-        want = np.asarray(getattr(dep_j, f)).reshape(SEGS, N, 3)[:, same]
-        m = v_p[:, same]
-        np.testing.assert_allclose(got[m], want[m], rtol=rtol, atol=atol, err_msg=f)
+def test_two_light_round_matches_jax_with_replayed_draws():
+    """The round-robin refill of two lights, held the same way."""
+    _round_matches_jax(*LIGHTS2, n_photons=512, seed=3)
 
 
 def test_two_lights_round_robin_balanced():
     """Per-light emitted counts stay within one photon (photon.py:145-155),
     on the port's own generator draws."""
     ps = port_scene(jscenes.full(atlas_res=16).replace(bezier_compact_frac=0.05))
-    lp = torch.tensor([[50.0, 60.0, 85.0], [30.0, 50.0, 120.0]])
-    lc = torch.tensor([[2500.0] * 3, [1000.0, 2000.0, 2000.0]])
+    lp, lc = torch.tensor(LIGHTS2[0]), torch.tensor(LIGHTS2[1])
     gen = torch.Generator().manual_seed(0)
     st, total = None, torch.zeros(2)
     for _ in range(3):

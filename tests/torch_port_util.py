@@ -1,10 +1,14 @@
 """Shared helpers of the port's tests (tests/test_torch_*.py).
 
 They hand the JAX package and the port identical data: scenes flattened to
-numpy, and the very uniforms ``jax.random`` draws inside the JAX functions,
-derived with JAX's own key-split structure and listed in the order the
-port's draws source is asked for them.
+numpy, the very uniforms ``jax.random`` draws inside the JAX functions
+(derived with JAX's own key-split structure and listed in the order the
+port's draws source is asked for them), and the JAX walks' per-segment
+states, which ``raytrace3_tpu_torch.testing.pinned_segments`` holds the
+port's walks to.
 """
+
+import contextlib
 
 import jax
 import numpy as np
@@ -59,3 +63,58 @@ def pass_draws(key, n_rounds: int, n_lanes: int, segs: int) -> list:
     for k in jax.random.split(kp, n_rounds):
         out += regen_round_draws(k, n_lanes, segs)
     return out
+
+
+#: The JAX walks' scan bodies, by qualified name, and the port's walk each
+#: corresponds to.
+_JAX_STEPS = {"_eye_pass_compact.<locals>.step": "eye",
+              "photon_trace_regen.<locals>.step": "photon"}
+
+
+def _torch(tree):
+    if isinstance(tree, (tuple, list)):
+        return tuple(_torch(x) for x in tree)
+    return torch.as_tensor(np.array(tree))
+
+
+@contextlib.contextmanager
+def jax_walk_steps():
+    """Record every step of the JAX eye and photon walks run within the
+    block, as (input, output) pairs in the port's calling convention
+    (``raytrace3_tpu_torch.testing``).
+
+    Each walk's ``lax.scan`` body gets a host callback that hands out its
+    carry in and out; the functions stay jitted.  The callback changes how
+    XLA fuses the step, so the recorded run's last bits differ from an
+    unrecorded run's: the recorded run is the reference.  The dict yielded
+    is filled when the block ends.
+    """
+    raw = {"eye": [], "photon": []}
+    steps = {"eye": [], "photon": []}
+    scan = jax.lax.scan
+
+    def recording_scan(f, init, xs=None, length=None, **kw):
+        name = getattr(f, "__qualname__", "")
+        walk = next((w for n, w in _JAX_STEPS.items() if name.endswith(n)), None)
+        if walk is None:
+            return scan(f, init, xs, length, **kw)
+
+        def body(carry, x):
+            out = f(carry, x)
+            jax.debug.callback(lambda c, o: raw[walk].append((c, o)), carry, out,
+                               ordered=True)
+            return out
+
+        return scan(body, init, xs, length, **kw)
+
+    jax.lax.scan = recording_scan
+    try:
+        yield steps
+    finally:
+        jax.lax.scan = scan
+    for (lanes, dropped), ((lanes_out, dropped_out), rows) in raw["eye"]:
+        steps["eye"].append((_torch(lanes), (
+            _torch(lanes_out), _torch(np.asarray(dropped_out) - np.asarray(dropped)),
+            _torch(rows))))
+    for carry, (carry_out, record) in raw["photon"]:
+        steps["photon"].append((_torch(carry), (_torch(carry_out), _torch(record))))
