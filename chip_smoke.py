@@ -5,15 +5,20 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels from ``raytrace3_tpu_torch/csrc/``
-and drives the port's main path, the bench configuration of ``bench.py``
-(scene ``full``, 512 x 512, 16 rounds x 131072 photons, depth 13, regen
-walk, Bezier compaction 0.09 / 0.05, the staged eye schedule, the tile
-deposit at tile 256 with 1-D banding, Newton at 8 restarts x 10
-iterations).  Phases, each of which ends the run with a non-zero exit when
-it fails:
+It builds the port's four CUDA kernels from ``raytrace3_tpu_torch/csrc/``
+and drives the port's two paths.  The render path is the bench
+configuration of ``bench.py`` (scene ``full``, 512 x 512, 16 rounds x
+131072 photons, depth 13, regen walk, Bezier compaction 0.09 / 0.05, the
+staged eye schedule, the tile deposit at tile 256 with 1-D banding, Newton
+at 8 restarts x 10 iterations).  The train path is
+``scripts/perf_trainstep.py``'s (scene ``full``, 256 x 256, 4 rounds x 32768
+photons, depth 13, atlas 64, Bezier compaction 0.12, hit-point factor 1.5,
+the slot eye wavefront and the static photon walk, the differentiable lane
+deposit at tile 256 / chunk 512 / work cap 16384 with 2-D banding and
+merged z windows, Adam on an MSE loss).  Phases, each of which ends the run
+with a non-zero exit when it fails:
 
-  1. the card's name and power limit; build both kernels, timed;
+  1. the card's name and power limit; build the four kernels, in parallel;
   2. the Newton kernel against its plain PyTorch twin on the teapot-bound
      rays of one photon segment at bench shapes;
   3. the tile deposit kernel against its plain twin on one bench round
@@ -21,8 +26,19 @@ it fails:
   4. a small pass (32 x 32, 2 x 1024 photons) on the card against the same
      pass on the CPU (the plain twins) with the same draws, held to it one
      walk segment at a time (``raytrace3_tpu_torch.testing``);
-  5. the main path: ``build_scene`` + ``make_pass_fn``, one warm pass and
-     timed passes, with both kernels' launch counters read around them.
+  5. the render path: ``build_scene`` + ``make_pass_fn``, one warm pass and
+     timed passes, with the kernels' launch counters read around them;
+  6. the lane deposit kernel against its plain twin on one train round
+     (14 x 32768 deposits against the 256^2 hit-point layout);
+  7. its transpose, the backward kernel, against its plain twin on the
+     same inputs with a seeded cotangent;
+  8. a small train step (16 x 16, 2 x 256 photons, the teapot in view) on
+     the card against the same step on the CPU with the same draws, walks
+     held segment by segment: loss and gradients;
+  9. the train path: ``build_scene`` + ``make_train_step`` at full width,
+     one warm step and timed steps from half the true albedos toward a
+     target rendered at the true ones, with the launch counters read
+     around them.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -36,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -63,6 +80,41 @@ DEPOSIT_FLUX_RTOL = 1e-5
 #: sees identical hit points and deposits and its flux sums differ in order
 #: only (DEPOSIT_FLUX_RTOL).
 SMALL_L1_RTOL = 1e-5
+#: The train path's settings (scripts/perf_trainstep.py:53-64).
+TRAIN = dict(scene="full", width=256, height=256, rounds=4, photons_per_round=32768,
+             max_depth=13, atlas_res=64, bezier_compact_frac=0.12,
+             bezier_compact_frac_photon=0.06, newton_iters=10, hitpoint_factor=1.5)
+TIMED_STEPS = 3
+#: Phase 8's small train step, tests/test_torch_train.py's: the camera and
+#: the light on the teapot, so that ctrl gets a gradient.
+SMALL_TRAIN = dict(scene="full", width=16, height=16, rounds=2, photons_per_round=256,
+                   max_depth=13, atlas_res=16, bezier_compact_frac=0.5,
+                   hitpoint_factor=1.5)
+SMALL_POSE = ((30.0, 20.0, 170.0), (20.0, 5.0, 120.0))
+SMALL_LIGHT = [[35.0, 15.0, 125.0]]
+SMALL_LANE = dict(tile=32, chunk=128, work_cap=2048)
+#: Loss of the card's held step against the CPU's (the deposit sums differ
+#: in order only), and gradients per parameter relative to its largest:
+#: the tolerance tests/test_torch_train.py states for the port against
+#: JAX, whose causes (gradients taken at each side's own values along the
+#: held path) are the same here.
+SMALL_LOSS_RTOL = 1e-5
+SMALL_GRAD_ATOL = 2e-3
+#: H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores and
+#: HBM bandwidth.  A kernel's bound is the larger of its operations over the
+#: first and its bytes (each input read once, each output written once) over
+#: the second.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+#: fp32 operations per deposit pair test (csrc/deposit_pair.cuh: 8 for d2,
+#: 5 for ndot, 2 compares) and per pair taken (4 adds forward, 3 backward).
+PAIR_OPS, TAKEN_OPS_FWD, TAKEN_OPS_BWD = 15, 4, 3
+#: fp32 operations of the Newton kernel (csrc/newton.cu), counted from the
+#: source: per (ray, patch, restart) lane the patch box and slab test; per
+#: lane that passes it the start (one patch evaluation and t0) and per
+#: iteration two patch evaluations (one with derivatives), the Cramer step,
+#: the clamps and the acceptance test.
+NEWTON_GATE_OPS, NEWTON_START_OPS, NEWTON_ITER_OPS = 120, 150, 543
 
 
 def card_line() -> str:
@@ -88,6 +140,19 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what binds it)."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, ops, nbytes) -> dict:
+    bound_ms, bound_by = bound(ops, nbytes)
+    return dict(name=name, route="cuda", source=f"raytrace3_tpu_torch/csrc/{source}",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def make_pass(settings: dict, device):
     from raytrace3_tpu_torch.ops.deposit_kernel import (make_tile_deposit,
                                                         world_bounds_from_scene)
@@ -104,21 +169,30 @@ def make_pass(settings: dict, device):
     return cfg, scene, fn
 
 
+SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu")
+
+
 def phase_build(card: str) -> None:
     from raytrace3_tpu_torch.ops import cuda_build
 
-    for source in ("newton.cu", "deposit_tile.cu"):
+    def one(source):
         t0 = time.perf_counter()
-        lib = cuda_build.build(source)
-        print(f"[1] built {source} in {time.perf_counter() - t0:.1f} s -> {lib.name}")
+        return source, cuda_build.build(source), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(one, SOURCES))
+    for source, lib, secs in built:
+        print(f"[1] built {source} in {secs:.1f} s -> {lib.name}")
         for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-    print(f"[1] card: {card}")
+    print(f"[1] all {len(SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s; card: {card}")
 
 
 def phase_newton(card: str, device) -> dict:
     """Kernel vs plain on the Newton inputs of one photon segment."""
+    from raytrace3_tpu_torch.geometry.aabb import aabb_from_points, slab_test
     from raytrace3_tpu_torch.ops.newton_kernel import solve, solve_plain
     from raytrace3_tpu_torch.render.driver import build_scene
     from raytrace3_tpu_torch.render.photon import photon_trace_regen
@@ -154,10 +228,18 @@ def phase_newton(card: str, device) -> dict:
     print(f"[2] newton: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
     if mismatch or pid_mismatch or not err <= NEWTON_ATOL or int(hit_w.sum()) == 0:
         raise SystemExit("phase 2 failed: the Newton kernel disagrees with its plain twin")
-    return dict(name="newton", route="cuda",
-                source="raytrace3_tpu_torch/csrc/newton.cu",
-                replaces="raytrace3_tpu/ops/newton_pallas.py:122",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, _round=deps)
+    R, B = org.shape[0], ctrl.shape[0]
+    pmin, pmax = aabb_from_points(ctrl.reshape(B, 16, 3))
+    open_lanes = int(slab_test(org[:, None], dir[:, None], pmin[None], pmax[None]).sum()) * RESTARTS
+    ops = (R * B * RESTARTS * NEWTON_GATE_OPS
+           + open_lanes * (NEWTON_START_OPS + cfg.newton_iters * NEWTON_ITER_OPS))
+    nbytes = R * 24 + B * 48 * 4 + R * 17
+    print(f"[2] newton: {open_lanes} of {R * B * RESTARTS} lanes pass the patch box; "
+          f"{ops / 1e9:.3f} G fp32 operations")
+    row = kernel_row("newton", "newton.cu", "raytrace3_tpu/ops/newton_pallas.py:122",
+                     err, ms, plain_ms, ops, nbytes)
+    row["_round"] = deps
+    return row
 
 
 def phase_deposit(card: str, device, deps) -> dict:
@@ -207,10 +289,12 @@ def phase_deposit(card: str, device, deps) -> dict:
     print(f"[3] deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
     if cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or int(want[:, 0].sum()) == 0:
         raise SystemExit("phase 3 failed: the deposit kernel disagrees with its plain twin")
-    return dict(name="deposit_tile", route="cuda",
-                source="raytrace3_tpu_torch/csrc/deposit_tile.cu",
-                replaces="raytrace3_tpu/ops/deposit_pallas.py:862",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    taken = float(want[:, 0].sum())
+    c_pad, Dp = packed.shape[0], dep_packed.shape[1]
+    nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * sk.numel() * 4
+    return kernel_row("deposit_tile", "deposit_tile.cu",
+                      "raytrace3_tpu/ops/deposit_pallas.py:862", err, ms, plain_ms,
+                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
 
 
 def phase_small(device) -> None:
@@ -289,6 +373,233 @@ def phase_main(card: str, device) -> dict:
     return launches
 
 
+def train_round(device):
+    """The train path's inputs to its deposit: the slot eye pass and one
+    static-walk round at the train configuration, on the card, and the
+    deposit ``make_train_step`` picks there."""
+    from raytrace3_tpu_torch.diff.train import default_deposit_vjp
+    from raytrace3_tpu_torch.ops.lane_kernel import DepositLane
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render.camera import emit_rays, look_at
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.render.eye import eye_pass
+    from raytrace3_tpu_torch.render.light import emit_photons
+    from raytrace3_tpu_torch.render.photon import photon_trace
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(**TRAIN)
+    scene = build_scene(cfg, device)
+    newton = make_newton(cfg.newton_iters, RESTARTS)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
+    hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
+                      cfg.init_r2, newton_fn=newton)
+    gen = torch.Generator(device=device).manual_seed(2)
+    o, d, f = emit_photons(gen, scene.light_pos, scene.light_color, cfg.photons_per_round)
+    deps = photon_trace(scene, gen, o, d, f, cfg.max_depth, newton_fn=newton)
+    depo = default_deposit_vjp(scene, cfg)
+    if not (isinstance(depo, DepositLane) and depo.differentiable):
+        raise SystemExit(f"the train path picked {depo!r}, not the differentiable lane deposit")
+    prep = depo.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // depo.tile
+    dkeys, dep_packed, Dp = depo._dep_sorted(deps, depo.chunk)
+    sk, ek = depo._window_lanes(prep, dkeys, n_tiles)
+    return dict(depo=depo, prep=prep, packed=packed, dep_packed=dep_packed, sk=sk, ek=ek,
+                n_tiles=n_tiles, Dp=Dp, deps=deps, hp_count=int(st["count"]))
+
+
+def phase_lane(card: str, r: dict) -> dict:
+    """Kernel #3 vs its plain twin on one train round."""
+    from raytrace3_tpu_torch.ops.lane_kernel import deposit_lane, deposit_lane_plain
+
+    depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
+    lo, hi, wa, wb, overflow = depo.forward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
+    got = deposit_lane(lo, hi, wa, wb, packed, dep_packed)
+    want = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed)
+    cnt_mismatch = int((got[:, 0] != want[:, 0]).sum())
+    dflux = (got[:, 1:4] - want[:, 1:4]).abs()
+    rel = float((dflux / want[:, 1:4].abs().clamp_min(1e-6)).max())
+    err = float((got - want).abs().max())
+    items = int(hi.max())
+    pairs = int((wb - wa)[:items].sum()) * depo.tile
+    taken = float(want[:, 0].sum())
+    _, _, _, _, _, _, total = depo._build_items(r["sk"], r["ek"], r["n_tiles"], depo.work_cap,
+                                                r["Dp"], 128)
+    _, _, kernel_overflow = depo._kernel_call(packed, r["deps"], r["prep"])
+    ms = cuda_ms(lambda: deposit_lane(lo, hi, wa, wb, packed, dep_packed))
+    plain_ms = cuda_ms(lambda: deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed), 3)
+    print(f"[6] lane deposit: {int(r['deps'].valid.sum())} valid of {r['deps'].pos.shape[0]} "
+          f"deposits, {r['hp_count']} hit points in {r['n_tiles']} tiles of {depo.tile}; "
+          f"{items} work items of {depo.work_cap} (of {int(total)} needed), "
+          f"{pairs / 1e9:.3f} G pair tests; pairs found {int(taken)}")
+    print(f"[6] lane deposit: count mismatches {cnt_mismatch}, max relative flux error "
+          f"{rel:.3g}, overflow {int(overflow)} / kernel path {int(kernel_overflow)}")
+    print(f"[6] lane deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0
+            or int(overflow) != int(kernel_overflow) or int(overflow) != 0):
+        raise SystemExit("phase 6 failed: the lane deposit kernel disagrees with its plain twin")
+    c_pad, Dp, W = packed.shape[0], dep_packed.shape[1], wa.shape[0]
+    nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * W * 4 + 2 * r["n_tiles"] * 4
+    row = kernel_row("deposit_lane", "deposit_lane.cu",
+                     "raytrace3_tpu/ops/deposit_pallas.py:530", err, ms, plain_ms,
+                     PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    row["_taken"] = taken
+    return row
+
+
+def phase_lane_bwd(card: str, r: dict, taken: float) -> dict:
+    """Kernel #4 vs its plain twin on the same round, u ~ U(0, 1) seeded."""
+    from raytrace3_tpu_torch.ops.lane_kernel import deposit_lane_bwd, deposit_lane_bwd_plain
+
+    depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
+    items = depo.backward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
+    gen = torch.Generator(device=packed.device).manual_seed(4)
+    u = torch.rand((packed.shape[0], 3), generator=gen, device=packed.device)
+    args = (*items, packed, u, dep_packed, depo.tile)
+    got = deposit_lane_bwd(*args, depo.chunk)
+    want = deposit_lane_bwd_plain(*args)
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-6)).max())
+    err = float((got - want).abs().max())
+    run_lo, run_hi, wt, wa, wb = items
+    pairs = int((wb - wa)[: int(run_hi.max())].sum()) * depo.tile
+    ms = cuda_ms(lambda: deposit_lane_bwd(*args, depo.chunk))
+    plain_ms = cuda_ms(lambda: deposit_lane_bwd_plain(*args), 3)
+    print(f"[7] lane backward: {int(run_hi.max())} work items of {wt.shape[0]} over "
+          f"{run_lo.shape[0]} deposit chunks of {depo.chunk}, {pairs / 1e9:.3f} G pair tests; "
+          f"max relative error {rel:.3g}, max |d| {err:.3g}, sum {float(want.sum()):.6g}")
+    print(f"[7] lane backward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    if not rel <= DEPOSIT_FLUX_RTOL or float(want.sum()) <= 0:
+        raise SystemExit("phase 7 failed: the lane backward kernel disagrees with its plain twin")
+    c_pad, Dp, W = packed.shape[0], dep_packed.shape[1], wt.shape[0]
+    nbytes = (6 * Dp * 4 + c_pad * 8 * 4 + c_pad * 3 * 4 + 3 * Dp * 4 + 3 * W * 4
+              + 2 * run_lo.shape[0] * 4)
+    return kernel_row("deposit_lane_bwd", "deposit_lane_bwd.cu",
+                      "raytrace3_tpu/ops/deposit_pallas.py:1243", err, ms, plain_ms,
+                      PAIR_OPS * pairs + TAKEN_OPS_BWD * taken, nbytes)
+
+
+def small_train_step(device, draws, steps=None):
+    """One small train step: (loss, stats, gradients, what was recorded or
+    the holding's report)."""
+    from raytrace3_tpu_torch.diff.train import adam, extract_params, make_train_step
+    from raytrace3_tpu_torch.ops.deposit_kernel import world_bounds_from_scene
+    from raytrace3_tpu_torch.ops.lane_kernel import DepositLane
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.testing import pinned_segments, recording_segments
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(**SMALL_TRAIN)
+    scene = build_scene(cfg, device).replace(
+        light_pos=torch.tensor(SMALL_LIGHT, dtype=torch.float32, device=device))
+    dep = DepositLane(differentiable=True, **SMALL_LANE,
+                      **world_bounds_from_scene(scene, extra_points=[SMALL_POSE[0]]))
+    init_fn, step_fn = make_train_step(scene, cfg, adam(1e-2), SMALL_POSE,
+                                       make_newton(cfg.newton_iters, RESTARTS), dep)
+    params = extract_params(scene)
+    opt = init_fn(params)
+    target = torch.as_tensor(np.random.default_rng(3).uniform(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32), device=device)
+    hold = recording_segments() if steps is None else pinned_segments(
+        eye_steps=steps["eye"], static_steps=steps["static"])
+    with hold as held:
+        _, _, loss, stats = step_fn(params, opt, draws, target)
+    grads = {k: v.grad.detach().cpu().numpy() for k, v in params.items()}
+    return float(loss), {k: int(v) for k, v in stats.items()}, grads, held
+
+
+def phase_small_train(device) -> None:
+    """The card's small train step held to the CPU's, same draws."""
+    from raytrace3_tpu_torch.core.sampling import (GeneratorDraws, RecordingDraws,
+                                                   ReplayDraws)
+    from raytrace3_tpu_torch.testing import MAX_FLIPS
+
+    draws = RecordingDraws(GeneratorDraws(torch.Generator().manual_seed(1)))
+    loss_c, st_c, g_c, steps = small_train_step("cpu", draws)
+    loss_g, st_g, g_g, report = small_train_step(device, ReplayDraws(draws.arrays, device),
+                                                 steps)
+    errs = {k: float(np.abs(g_g[k] - g_c[k]).max() / max(np.abs(g_c[k]).max(), 1e-30))
+            for k in g_c}
+    print(f"[8] small train step card vs cpu, held: {report.segments} segments, "
+          f"lanes per class {report.lanes}")
+    print(f"[8] loss card {loss_g!r} cpu {loss_c!r}; stats card {st_g} cpu {st_c}")
+    print("[8] max |grad| cpu: " + ", ".join(f"{k} {np.abs(v).max():.3g}" for k, v in g_c.items())
+          + "; max |d grad| / max |grad|: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    ok = (report.segments == {"eye": len(steps["eye"]), "photon": 0,
+                              "static": len(steps["static"])}
+          and report.lanes["self-hit flip"] <= MAX_FLIPS and st_g == st_c
+          and st_c == {"deposits_dropped": 0, "dropped": 0}
+          and np.isfinite(loss_g) and abs(loss_g - loss_c) <= SMALL_LOSS_RTOL * abs(loss_c)
+          and all(np.abs(g_c[k]).max() > 0 and np.isfinite(g_g[k]).all()
+                  and errs[k] <= SMALL_GRAD_ATOL for k in g_c))
+    if not ok:
+        raise SystemExit("phase 8 failed: the card's train step disagrees with the CPU's")
+
+
+def phase_train(card: str, device) -> dict:
+    """The train path at full width; returns launch counts."""
+    from raytrace3_tpu_torch.diff.train import (extract_params, make_render_fn,
+                                                make_train_step)
+    from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(**TRAIN)
+    scene = build_scene(cfg)                       # the card is the default
+    newton = make_newton(cfg.newton_iters, RESTARTS)
+    gen = lambda: torch.Generator(device=device).manual_seed(0)
+    p_true = extract_params(scene)
+    with torch.no_grad():
+        target = make_render_fn(scene, cfg, newton_fn=newton)(p_true, gen())
+    target = target.reshape(cfg.height, cfg.width, 3)
+    params = dict(p_true, diff=p_true["diff"] * 0.5)
+    init_fn, step_fn = make_train_step(scene, cfg, newton_fn=newton)
+    opt = init_fn(params)
+    counters = {"newton": newton_kernel.KERNEL, "deposit_tile": deposit_kernel.KERNEL,
+                "deposit_lane": lane_kernel.FORWARD,
+                "deposit_lane_bwd": lane_kernel.BACKWARD}
+    for k in counters.values():
+        k.launches = 0
+    losses, stats = [], []
+    t0 = time.perf_counter()
+    _, _, loss, st = step_fn(params, opt, gen(), target)
+    losses.append(float(loss))
+    stats.append({k: int(v) for k, v in st.items()})
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        _, _, loss, st = step_fn(params, opt, gen(), target)
+        losses.append(loss)
+        stats.append(st)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: c.launches for k, c in counters.items()}
+    losses = [float(x) for x in losses]
+    stats = [{k: int(v) for k, v in s.items()} for s in stats]
+    grads = {k: v.grad for k, v in params.items()}
+    gmax = {k: float(g.abs().max()) for k, g in grads.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    print(f"[9] train path {cfg.width}x{cfg.height}, {cfg.rounds} x {cfg.photons_per_round} "
+          f"photons, C = {cfg.hitpoint_capacity}: first step {warm_s:.2f} s, "
+          f"{step_s:.3f} s/step over {TIMED_STEPS}, peak memory {peak_gb:.2f} GB ({card})")
+    print(f"[9] loss per step {losses}; stats {stats}")
+    print(f"[9] max |grad| {gmax}; launches {launches}")
+    train_kernels = ("newton", "deposit_lane", "deposit_lane_bwd")
+    ok = (np.isfinite(losses).all() and losses[-1] < losses[0] and finite
+          and all(s == {"deposits_dropped": 0, "dropped": 0} for s in stats)
+          and all(v > 0 for v in gmax.values())
+          and all(launches[k] > 0 for k in train_kernels))
+    if not ok:
+        raise SystemExit("phase 9 failed: the train path's result or launches are wrong")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -306,13 +617,24 @@ def main() -> int:
     deposit = phase_deposit(card, device, deps)
     del deps
     phase_small(device)
-    launches = phase_main(card, device)
-    newton["launches"] = launches["newton"]
-    deposit["launches"] = launches["deposit_tile"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+    render = phase_main(card, device)
+    r = train_round(device)
+    lane = phase_lane(card, r)
+    lane_bwd = phase_lane_bwd(card, r, lane.pop("_taken"))
+    del r
+    phase_small_train(device)
+    train = phase_train(card, device)
+    # Each kernel's launches on the path(s) it runs on: the render path
+    # (phase 5) and the train path (phase 9), each counted from 0.
+    for row in (newton, deposit, lane, lane_bwd):
+        name = row["name"]
+        row["launches_by_path"] = {"render": render.get(name, 0), "train": train[name]}
+        row["launches"] = render.get(name, 0) + train[name]
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in (newton, deposit)]}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys}
+                                  for d in (newton, deposit, lane, lane_bwd)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 
 The JAX package ``raytrace3_tpu`` beside this one is the reference; every
 module here names its counterpart there.  This package imports ``torch`` and
-never ``jax``.  Its two hot kernels are hand-written CUDA C++ for Hopper
+never ``jax``.  Its kernels are hand-written CUDA C++ for Hopper
 (``csrc/``), built with ``nvcc`` at first use; each has a plain PyTorch twin
-that the wrappers take for tensors on the CPU.
+that the wrappers take for tensors on the CPU.  Its entry points run on the
+card unless the caller passes ``device="cpu"`` (``core/device.py``).
 
 Every geometry and table contraction runs in true fp32: TF32 is switched off
 for matmul and cuDNN at import (on the TPU, the bf16 matmul default made

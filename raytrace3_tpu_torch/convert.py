@@ -73,3 +73,9 @@ def hitpoints_from_numpy(d: dict, device="cpu") -> HitPoints:
 
 def deposits_from_numpy(d: dict, device="cpu") -> Deposits:
     return _record(Deposits, d, "", device)
+
+
+def params_from_numpy(d: dict, device="cpu") -> dict:
+    """The port's parameter dict (``diff.train.extract_params``) from the
+    JAX package's, as numpy arrays: ``diff``, ``atlas`` and ``ctrl``."""
+    return {k: torch.as_tensor(np.array(v), device=device) for k, v in d.items()}

@@ -23,19 +23,20 @@
 // width kStage = 512 (18 KB of shared memory) is this kernel's own choice;
 // the TPU's chunk 2048 was a DMA tuning.
 //
-// Bound: the pair tests, ~16 fp32 operations each over the candidate volume
-// (all lanes of the tile's K windows x tile), read from shared memory by
-// broadcast.  Built with -fmad=false; d2 is summed in the plain version's
-// order, (dx*dx + dy*dy) + dz*dz, so the count matches the plain PyTorch
-// version in raytrace3_tpu_torch/ops/deposit_kernel.py exactly and the flux
-// up to fp32 summation order.
+// Bound: the pair tests, 15 fp32 operations each (8 for d2, 5 for ndot, 2
+// compares) plus 4 adds per pair taken, over the candidate volume (all lanes
+// of the tile's K windows x tile), read from shared memory by broadcast.
+// The pair test is deposit_pair.cuh's, so the count matches the plain
+// PyTorch version in raytrace3_tpu_torch/ops/deposit_kernel.py exactly and
+// the flux up to fp32 summation order.
 
 #include <cuda_runtime.h>
+
+#include "deposit_pair.cuh"
 
 namespace {
 
 constexpr int kStage = 512;
-constexpr float kNormalDotMin = 1e-3f;
 
 __global__ void deposit_tile_kernel(const int* __restrict__ sk,
                                     const int* __restrict__ ek, int n_windows,
@@ -46,48 +47,16 @@ __global__ void deposit_tile_kernel(const int* __restrict__ sk,
 
   const int tile = blockIdx.x;
   const long long slot = (long long)tile * blockDim.x + threadIdx.x;
-  const float* h = packed + slot * 8;
-  const float hx = h[0], hy = h[1], hz = h[2];
-  const float nx = h[3], ny = h[4], nz = h[5];
-  const float r2 = h[6];
+  const rt3::HitSlot h = rt3::load_slot(packed + slot * 8);
 
   float cnt = 0.0f, f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
   for (int k = 0; k < n_windows; ++k) {
     // Clipped to the deposit array, so no interval reads outside it.
     const int s = max(sk[tile * n_windows + k], 0);
     const int e = (int)min((long long)ek[tile * n_windows + k], dp);
-    for (int base = s; base < e; base += kStage) {
-      const int n = min(kStage, e - base);
-      __syncthreads();                      // the previous stage is consumed
-      for (int i = threadIdx.x; i < 9 * kStage; i += blockDim.x) {
-        const int row = i / kStage, col = i % kStage;
-        if (col < n) sd[row][col] = dep[row * dp + base + col];
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const float dx = hx - sd[0][j];
-        const float dy = hy - sd[1][j];
-        const float dz = hz - sd[2][j];
-        const float d2 = (dx * dx + dy * dy) + dz * dz;
-        const float ndot = (nx * sd[3][j] + ny * sd[4][j]) + nz * sd[5][j];
-        if (d2 <= r2 && ndot > kNormalDotMin) {
-          cnt += 1.0f;
-          f0 += sd[6][j];
-          f1 += sd[7][j];
-          f2 += sd[8][j];
-        }
-      }
-    }
+    rt3::accumulate_lanes<kStage>(sd, dep, dp, s, e, h, cnt, f0, f1, f2);
   }
-  float* o = out + slot * 8;
-  o[0] = cnt;
-  o[1] = f0;
-  o[2] = f1;
-  o[3] = f2;
-  o[4] = 0.0f;
-  o[5] = 0.0f;
-  o[6] = 0.0f;
-  o[7] = 0.0f;
+  rt3::store_row(out + slot * 8, cnt, f0, f1, f2);
 }
 
 }  // namespace

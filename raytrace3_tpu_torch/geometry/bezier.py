@@ -1,10 +1,12 @@
 """Cubic Bezier patches: Bernstein evaluation and the ray-object hit.
 
-Port of the forward parts of ``raytrace3_tpu/geometry/bezier.py``.  The
+Port of ``raytrace3_tpu/geometry/bezier.py`` for the winner contract.  The
 Newton solve itself is ``ops/newton_kernel.solve`` (the CUDA kernel, or its
-plain twin on the CPU); it runs without autograd here.  The implicit-
-function-theorem backward (``winner_root``) waits for the differentiable
-slice.  ``load_bpt`` and ``teapot_transform`` are host-side numpy, copied.
+plain twin on the CPU) and runs without autograd; :func:`winner_root` wraps
+any such solver so that gradients reach the rays and the control points by
+the implicit function theorem at the root, as the JAX package's
+``winner_root`` does.  ``load_bpt`` and ``teapot_transform`` are host-side
+numpy, copied.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..core.types import Record
 from ..core.vecmath import MAX_DIST, cross, normalize
 from ..ops import newton_kernel
 from ..ops.compact import compact_indices
+from ..ops.solve3 import solve3_columns
 from .aabb import aabb_from_points, slab_test
 
 #: Reference Newton iteration budget (Bezier.h:6 ``MAX_ITER 10``).
@@ -72,6 +75,51 @@ def patch_tangents(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     return su, sv
 
 
+class _WinnerRoot(torch.autograd.Function):
+    """Forward: the solver on detached inputs.  Backward: the implicit
+    function theorem at the root as returned, for F(t, u, v; org, dir,
+    ctrl) = org + t dir - S(u, v; ctrl) = 0 with J = [dir | -Su | -Sv]:
+    w = J^-T (g_t, g_u, g_v), then d_org = -w, d_dir = -t w and d_ctrl =
+    (dS/dctrl)^T w, scattered per patch (JAX ``_winner_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, org, dir, ctrl, solver):
+        t, u, v, pid, hit = solver(org.detach().contiguous(),
+                                   dir.detach().contiguous(),
+                                   ctrl.detach().contiguous())
+        ctx.mark_non_differentiable(pid, hit)
+        ctx.save_for_backward(dir, ctrl, t, u, v, pid, hit)
+        return t, u, v, pid, hit
+
+    @staticmethod
+    def backward(ctx, g_t, g_u, g_v, _g_pid, _g_hit):
+        dir, ctrl, t, u, v, pid, hit = ctx.saved_tensors
+        g = torch.stack([torch.where(hit, g_t, 0.0), torch.where(hit, g_u, 0.0),
+                         torch.where(hit, g_v, 0.0)], -1)          # (R, 3)
+        pid = pid.long()
+        # Linearised at the root the forward returned, not a polished one.
+        su, sv = patch_tangents(ctrl[pid], u, v)
+        # J^T w = g: the rows of J are (dir_c, -su_c, -sv_c), c = x, y, z.
+        rows = [torch.stack([dir[:, c], -su[:, c], -sv[:, c]], -1) for c in range(3)]
+        w0, w1, w2, ok = solve3_columns(*rows, g)
+        w = torch.where((hit & ok)[:, None], torch.stack([w0, w1, w2], -1), 0.0)
+        d_org = -w
+        d_dir = -t[:, None] * w
+        bu, bv = bernstein(u), bernstein(v)                         # (R, 4)
+        contrib = (bv[:, :, None, None] * bu[:, None, :, None]
+                   * w[:, None, None, :])                           # (R, 4, 4, 3)
+        d_ctrl = torch.zeros_like(ctrl).index_add_(0, pid, contrib)
+        return d_org, d_dir, d_ctrl, None
+
+
+def winner_root(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor, solver):
+    """``solver(org, dir, ctrl) -> (t, u, v, patch_id, hit)``, differentiable
+    in ``org``, ``dir`` and ``ctrl`` through (t, u, v) by the implicit
+    function theorem (O(1) memory, exact at the root); ``patch_id`` and
+    ``hit`` carry no gradient."""
+    return _WinnerRoot.apply(org, dir, ctrl, solver)
+
+
 def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
                      iters: int = DEFAULT_NEWTON_ITERS, newton_fn=None,
                      compact_frac: float = 1.0):
@@ -85,7 +133,8 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
 
     ``newton_fn``: a winner-contract solver ``(org, dir, ctrl) ->
     (t, u, v, patch_id, hit)``; defaults to ``newton_kernel.solve`` at
-    ``iters`` iterations and its default restarts.
+    ``iters`` iterations and its default restarts.  Either way the solve
+    goes through :func:`winner_root`, so gradients flow by the IFT.
 
     Returns (t, hit, u, v, n): t (R,), hit (R,), u/v (R,), n (R, 3).
     """
@@ -107,7 +156,7 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
         idx = compact_indices(obj_gate, cap, fill=R)              # (cap,)
         od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
         org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
-        t_c, u_c, v_c, pid_c, hit_c = solver(org_c, dir_c, ctrl)
+        t_c, u_c, v_c, pid_c, hit_c = winner_root(org_c, dir_c, ctrl, solver)
         n_c = winner_normal(dir_c, u_c, v_c, pid_c)
         rows = torch.cat([t_c[:, None], u_c[:, None], v_c[:, None],
                           hit_c.to(dir.dtype)[:, None], n_c], 1)  # (cap, 7)
@@ -121,8 +170,7 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
         hit = out[:R, 3] > 0.5
         n = out[:R, 4:7]
     else:
-        t_best, u_best, v_best, pid, hit = solver(org.contiguous(),
-                                                  dir.contiguous(), ctrl)
+        t_best, u_best, v_best, pid, hit = winner_root(org, dir, ctrl, solver)
         n = winner_normal(dir, u_best, v_best, pid)
 
     hit = hit & obj_gate

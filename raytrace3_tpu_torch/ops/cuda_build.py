@@ -49,13 +49,15 @@ def _nvcc() -> str:
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` once per content hash; return the library.
+    """Compile ``csrc/<source>`` once per content hash (the source, the
+    shared ``csrc/*.cuh`` headers and the flags); return the library.
 
     The ptxas report (registers, shared memory, spills) is kept beside the
     library as ``<name>.ptxas.txt``.
     """
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib

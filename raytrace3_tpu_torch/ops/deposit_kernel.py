@@ -1,15 +1,19 @@
 """Banded photon deposit: the host side, the CUDA tile kernel and its twin.
 
-Port of ``raytrace3_tpu/ops/deposit_pallas.py``'s ``PallasDepositTile`` with
-1-D banding (``bucket2d=False``), the bench's deposit:
+Port of ``raytrace3_tpu/ops/deposit_pallas.py``'s ``PallasDepositTile``
+host side, with 1-D banding (the bench's deposit, ``bucket2d=False``) or
+2-D banding (``bucket2d=True``, which ``ops/lane_kernel.DepositLane``
+builds on):
 
-  * key = x-bucket id * y_stride + quantized y, with bucket width 2r along
-    x and y quantized to 1/8 unit; window bounds are floor/ceil, so every
-    window is a superset and the pair test is the true filter;
+  * key = bucket id * y_stride + quantized y, with bucket width 2r along
+    x (1-D) or along x and z (2-D, bucket id = kx * n_bz + kz) and y
+    quantized to 1/8 unit; window bounds are floor/ceil, so every window
+    is a superset and the pair test is the true filter;
   * hit points live in a bucket-aligned, tile-padded layout (``prepare``,
     once per pass), so each tile of ``tile`` slots belongs to one bucket and
-    its neighbours lie in K = 3 key intervals of the round's sorted
-    deposits, found by ``searchsorted`` and made disjoint by a cascade;
+    its neighbours lie in K key intervals of the round's sorted deposits
+    (3 in 1-D, 9 in 2-D), found by ``searchsorted`` and made disjoint by a
+    cascade;
   * ``deposit_tile(sk, ek, packed, dep_packed)`` walks those intervals:
     ``csrc/deposit_tile.cu`` for CUDA tensors, :func:`deposit_tile_plain`
     for CPU tensors, nothing else.
@@ -35,6 +39,8 @@ from .cuda_build import CudaKernel, check, ptr
 SEARCH_R = math.sqrt(2.0)
 DEFAULT_X_LO = -40.0
 DEFAULT_X_HI = 200.0
+DEFAULT_Z_LO = -40.0
+DEFAULT_Z_HI = 200.0
 #: Sentinel position for invalid and padding deposit lanes.
 FAR = 1e9
 #: Sort-key y quantisation: 1/8 unit over [y_lo, y_hi).
@@ -50,6 +56,59 @@ KERNEL = CudaKernel("deposit_tile.cu", "rt3_deposit_tile", [
 ])
 
 
+def interval_pairs(tile_of: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   hp: torch.Tensor, dep_packed: torch.Tensor, pairs_per_step: int):
+    """The pair tests of lane intervals against hit-point tiles, in steps.
+
+    Interval k covers deposit lanes [lo[k], hi[k]) against the slots of tile
+    ``tile_of[k]`` of ``hp`` (n_tiles, t, 8).  Yields (tile (P,), lane (P,),
+    lane rows (9, P), mask (P, t) float32) for ``pairs_per_step // t`` lanes
+    at a time, in order (interval, lane): the plain versions of the deposit
+    kernels share it, so they take the same pairs.
+    """
+    t = hp.shape[1]
+    lens = torch.clamp_min(hi.long() - lo.long(), 0)
+    ends = torch.cumsum(lens, 0)
+    starts = ends - lens
+    total = int(ends[-1]) if ends.numel() else 0
+    step = max(1, pairs_per_step // t)
+    for i0 in range(0, total, step):
+        item = torch.arange(i0, min(i0 + step, total), device=hp.device)
+        k = torch.searchsorted(ends, item, right=True)
+        lane = lo.long()[k] + (item - starts[k])
+        tile = tile_of.long()[k]
+        d = dep_packed[:9, lane]                              # (9, P)
+        h = hp[tile]                                          # (P, t, 8)
+        dx = h[..., 0] - d[0, :, None]
+        dy = h[..., 1] - d[1, :, None]
+        dz = h[..., 2] - d[2, :, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        ndot = h[..., 3] * d[3, :, None] + h[..., 4] * d[4, :, None] \
+            + h[..., 5] * d[5, :, None]
+        m = ((d2 <= h[..., 6]) & (ndot > NORMAL_DOT_MIN)).to(torch.float32)
+        yield tile, lane, d, m
+
+
+def intervals_plain(tile_of, lo, hi, packed: torch.Tensor, dep_packed: torch.Tensor,
+                 n_tiles: int, pairs_per_step: int) -> torch.Tensor:
+    """Count (col 0) and raw RGB flux (cols 1:4) per hit slot over the
+    intervals' pair tests; (c_pad, 8), zero where no interval reaches."""
+    c_pad = packed.shape[0]
+    t = c_pad // n_tiles
+    dev = packed.device
+    cnt = torch.zeros((n_tiles, t), dtype=torch.float32, device=dev)
+    flux = torch.zeros((3, n_tiles, t), dtype=torch.float32, device=dev)
+    for tile, _, d, m in interval_pairs(tile_of, lo, hi, packed.reshape(n_tiles, t, 8),
+                                        dep_packed, pairs_per_step):
+        cnt.index_add_(0, tile, m)
+        for c in range(3):
+            flux[c].index_add_(0, tile, m * d[6 + c, :, None])
+    out = torch.zeros((c_pad, 8), dtype=torch.float32, device=dev)
+    out[:, 0] = cnt.reshape(-1)
+    out[:, 1:4] = flux.reshape(3, -1).T
+    return out
+
+
 def deposit_tile_plain(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
                        dep_packed: torch.Tensor,
                        pairs_per_step: int = 1 << 22) -> torch.Tensor:
@@ -61,39 +120,9 @@ def deposit_tile_plain(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
     in memory on the card.
     """
     n_tiles, K = sk.shape
-    c_pad = packed.shape[0]
-    t = c_pad // n_tiles
-    dev = packed.device
-    hp = packed.reshape(n_tiles, t, 8)
-    lens = torch.clamp_min(ek - sk, 0).reshape(-1).long()
-    ends = torch.cumsum(lens, 0)
-    starts = ends - lens
-    total = int(ends[-1]) if ends.numel() else 0
-    cnt = torch.zeros((n_tiles, t), dtype=torch.float32, device=dev)
-    flux = torch.zeros((3, n_tiles, t), dtype=torch.float32, device=dev)
-    step = max(1, pairs_per_step // t)
-    sk_flat = sk.reshape(-1).long()
-    for i0 in range(0, total, step):
-        item = torch.arange(i0, min(i0 + step, total), device=dev)
-        win = torch.searchsorted(ends, item, right=True)
-        lane = sk_flat[win] + (item - starts[win])
-        tile = win // K
-        d = dep_packed[:9, lane]                              # (9, P)
-        h = hp[tile]                                          # (P, t, 8)
-        dx = h[..., 0] - d[0, :, None]
-        dy = h[..., 1] - d[1, :, None]
-        dz = h[..., 2] - d[2, :, None]
-        d2 = dx * dx + dy * dy + dz * dz
-        ndot = h[..., 3] * d[3, :, None] + h[..., 4] * d[4, :, None] \
-            + h[..., 5] * d[5, :, None]
-        m = ((d2 <= h[..., 6]) & (ndot > NORMAL_DOT_MIN)).to(torch.float32)
-        cnt.index_add_(0, tile, m)
-        for c in range(3):
-            flux[c].index_add_(0, tile, m * d[6 + c, :, None])
-    out = torch.zeros((c_pad, 8), dtype=torch.float32, device=dev)
-    out[:, 0] = cnt.reshape(-1)
-    out[:, 1:4] = flux.reshape(3, -1).T
-    return out
+    tile_of = torch.arange(n_tiles, device=sk.device).repeat_interleave(K)
+    return intervals_plain(tile_of, sk.reshape(-1), ek.reshape(-1), packed,
+                        dep_packed, n_tiles, pairs_per_step)
 
 
 def _deposit_tile_cuda(sk, ek, packed, dep_packed):
@@ -154,7 +183,8 @@ class DepositTile:
     def __init__(self, tile: int = 256, chunk: int = 2048, axes=(0, 1),
                  search_r: float = SEARCH_R, x_lo: float = DEFAULT_X_LO,
                  x_hi: float = DEFAULT_X_HI, y_lo: float = Y_LO,
-                 y_hi: float = Y_HI):
+                 y_hi: float = Y_HI, bucket2d: bool = False,
+                 z_lo: float = DEFAULT_Z_LO, z_hi: float = DEFAULT_Z_HI):
         self.tile = tile
         #: deposit lanes are padded to a multiple of this (JAX parity)
         self.chunk = chunk
@@ -163,19 +193,37 @@ class DepositTile:
         self.bucket = 2.0 * search_r
         self.x_lo = x_lo
         self.n_bx = int(math.ceil((x_hi - x_lo) / self.bucket)) + 1
-        self.n_bz = 1
-        self.n_buckets = self.n_bx
+        self.bucket2d = bucket2d
+        #: the second bucketed axis of 2-D banding
+        self.az = 2
+        self.z_lo = z_lo
+        self.n_bz = int(math.ceil((z_hi - z_lo) / self.bucket)) + 1 if bucket2d else 1
+        self.n_buckets = self.n_bx * self.n_bz
         self.y_lo = y_lo
         self.y_range = int(math.ceil((y_hi - y_lo) * YQ))
         self.y_stride = self.y_range + 2
         #: window bucket offsets, ascending (key order): the x neighbours
-        self.win_offs = [-1, 0, 1]
+        #: (1-D) or the 3 x 3 (x, z) neighbourhood (2-D); a kz at the z
+        #: boundary wraps into a real bucket, which only adds candidates
+        if bucket2d:
+            self.win_offs = [dx * self.n_bz + dz for dx in (-1, 0, 1)
+                             for dz in (-1, 0, 1)]
+        else:
+            self.win_offs = [-1, 0, 1]
+        #: lower / upper bucket offset per window (DepositLane's merged z
+        #: windows give them different values)
+        self.win_offs_lo = self.win_offs
+        self.win_offs_hi = self.win_offs
 
     # -- helpers -----------------------------------------------------------
     def _bid(self, pos: torch.Tensor) -> torch.Tensor:
-        """x-bucket id per row of ``pos`` (int32)."""
+        """Bucket id per row of ``pos`` (int32)."""
         kx = torch.floor((pos[:, self.ax] - self.x_lo) / self.bucket)
-        return torch.clamp(kx.to(torch.int32), 0, self.n_bx - 1)
+        kx = torch.clamp(kx.to(torch.int32), 0, self.n_bx - 1)
+        if not self.bucket2d:
+            return kx
+        kz = torch.floor((pos[:, self.az] - self.z_lo) / self.bucket)
+        return kx * self.n_bz + torch.clamp(kz.to(torch.int32), 0, self.n_bz - 1)
 
     def _yq(self, y: torch.Tensor) -> torch.Tensor:
         """Quantized sort coordinate (floor; conservative with ceil hi)."""
@@ -187,10 +235,10 @@ class DepositTile:
         return ((C + t - 1) // t) * t + (self.n_buckets + 1) * t
 
     def _build_windows(self, kb, ylo_q, yhi_q):
-        """Per-tile (lo_keys, hi_keys), (n_tiles, K) each: the tile's own
-        bucket and its x neighbours, over the tile's y range."""
-        lo = [(kb + o) * self.y_stride + ylo_q for o in self.win_offs]
-        hi = [(kb + o) * self.y_stride + yhi_q for o in self.win_offs]
+        """Per-tile (lo_keys, hi_keys), (n_tiles, K) each: the windows
+        around the tile's own bucket, over the tile's y range."""
+        lo = [(kb + o) * self.y_stride + ylo_q for o in self.win_offs_lo]
+        hi = [(kb + o) * self.y_stride + yhi_q for o in self.win_offs_hi]
         return torch.stack(lo, 1), torch.stack(hi, 1)
 
     def _sentinel_key(self) -> int:
@@ -198,7 +246,10 @@ class DepositTile:
         return (self.n_buckets + self.n_bz + 2) * self.y_stride
 
     # -- once per pass -----------------------------------------------------
+    @torch.no_grad()
     def prepare(self, hp: HitPoints) -> HpLayout:
+        """The layout orders and pads by position only: the box kernel's
+        derivative there is zero, so it is built without autograd."""
         t = self.tile
         C = hp.capacity
         nb = self.n_buckets
@@ -254,8 +305,11 @@ class DepositTile:
         return HpLayout(packed=packed, g=g, lo_keys=lo_keys, hi_keys=hi_keys)
 
     # -- per round ---------------------------------------------------------
-    def _dep_sorted(self, dep: Deposits, granularity: int):
-        """Sort and pack the round's deposits: (dkeys, dep_packed, Dp).
+    def _dep_sorted(self, dep: Deposits, granularity: int,
+                    with_order: bool = False):
+        """Sort and pack the round's deposits: (dkeys, dep_packed, Dp), and
+        with ``with_order`` also the permutation (D,) that sorted them (the
+        backward unsorts with it).
 
         ``dep_packed`` is (16, Dp), Dp a multiple of ``granularity``; rows
         pos xyz (FAR for invalid), n xyz, flux rgb (0 for invalid), zeros.
@@ -274,6 +328,8 @@ class DepositTile:
                                  device=dep.pos.device)
         dep_packed[0:3] = FAR
         dep_packed[0:9, :D] = rows[order].T
+        if with_order:
+            return dkeys, dep_packed, Dp, order
         return dkeys, dep_packed, Dp
 
     def _window_lanes(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int):

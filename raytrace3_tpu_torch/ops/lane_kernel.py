@@ -1,0 +1,365 @@
+"""Lane-granular banded photon deposit and its transpose: the host side,
+the CUDA kernels and their twins.
+
+Port of ``raytrace3_tpu/ops/deposit_pallas.py``'s ``PallasDepositLane``,
+the deposit of the gradient path (``diff.train.default_deposit_vjp``):
+
+  * the banding, layout and windows of ``deposit_kernel.DepositTile``, with
+    2-D (x, z) buckets by default and, with ``merge_z``, the 3 x 3
+    neighbourhood collapsed into K = 3 key-contiguous windows (lower
+    offset (dx, kz - 1), upper (dx, kz + 1));
+  * the tiles' lane intervals flattened into at most ``work_cap`` work
+    items of one ``chunk`` of lanes each (``_build_items``); items beyond
+    the cap are dropped and counted as ``overflow`` (an upper bound on the
+    candidate lanes skipped);
+  * ``deposit_lane`` (kernel #3, ``csrc/deposit_lane.cu``) sums count and
+    flux per hit slot over each tile's run of items;
+  * with ``differentiable=True`` a call is a ``torch.autograd.Function``
+    whose backward runs ``deposit_lane_bwd`` (kernel #4,
+    ``csrc/deposit_lane_bwd.cu``), the transposed pair sum
+    d_flux[j] = sum_i m_ij u_i over items re-cut at chunk alignment and
+    sorted by deposit chunk; gradients reach ``hp.wgt`` and ``dep.flux``
+    only (the box kernel's derivative is zero almost everywhere).
+
+CUDA tensors launch the kernels (or raise); CPU tensors take
+:func:`deposit_lane_plain` and :func:`deposit_lane_bwd_plain`, nothing
+else.  Sorts are stable; JAX's leaves the order of equal keys open, which
+moves only the order of flux sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..core.types import Deposits, HitPoints
+from .cuda_build import CudaKernel, check, ptr
+from .deposit_kernel import DepositTile, HpLayout, interval_pairs, intervals_plain
+
+FORWARD = CudaKernel("deposit_lane.cu", "rt3_deposit_lane", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # item_lo, item_hi, n_tiles, tile
+    ctypes.c_void_p, ctypes.c_void_p,                               # wa, wb
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,            # packed, dep, Dp
+    ctypes.c_void_p,                                                # out
+])
+BACKWARD = CudaKernel("deposit_lane_bwd.cu", "rt3_deposit_lane_bwd", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # run_lo, run_hi, n_blocks, chunk
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # wt, wa, wb, tile
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # packed, u, dep
+    ctypes.c_longlong, ctypes.c_void_p,                             # Dp, out
+])
+#: the forward's fetch alignment on the TPU (the DMA's lane granule): item
+#: boundaries, and so work-item counts and overflow, follow it
+FETCH_ALIGN = 128
+
+
+def _runs_items(lo: torch.Tensor, hi: torch.Tensor):
+    """(owner (P,), item (P,)) for every item of the runs [lo_k, hi_k)."""
+    lens = torch.clamp_min(hi.long() - lo.long(), 0)
+    owner = torch.repeat_interleave(torch.arange(lo.shape[0], device=lo.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    item = lo.long()[owner] + torch.arange(owner.shape[0], device=lo.device) - first[owner]
+    return owner, item
+
+
+def deposit_lane_plain(item_lo: torch.Tensor, item_hi: torch.Tensor, wa: torch.Tensor,
+                       wb: torch.Tensor, packed: torch.Tensor, dep_packed: torch.Tensor,
+                       pairs_per_step: int = 1 << 22) -> torch.Tensor:
+    """Kernel #3's contract in plain PyTorch: count (col 0) and raw RGB flux
+    (cols 1:4) per hit slot of tile i over lanes [wa, wb) of its items
+    [item_lo[i], item_hi[i]); tiles with an empty run read 0.  Steps of
+    ``pairs_per_step`` pair tests keep a full round in memory."""
+    tile_of, item = _runs_items(item_lo, item_hi)
+    return intervals_plain(tile_of, wa.long()[item], wb.long()[item], packed,
+                           dep_packed, item_lo.shape[0], pairs_per_step)
+
+
+def deposit_lane_bwd_plain(run_lo: torch.Tensor, run_hi: torch.Tensor, wt: torch.Tensor,
+                           wa: torch.Tensor, wb: torch.Tensor, packed: torch.Tensor,
+                           u: torch.Tensor, dep_packed: torch.Tensor, tile: int,
+                           pairs_per_step: int = 1 << 22) -> torch.Tensor:
+    """Kernel #4's contract in plain PyTorch: (3, Dp) d_flux per sorted
+    deposit lane, the sum over the items of its chunk's run [run_lo,
+    run_hi) of u_i over the pairs (hit slot i of tile ``wt``, lane in
+    [wa, wb)) taken; chunks with an empty run read 0."""
+    n_tiles = packed.shape[0] // tile
+    _, item = _runs_items(run_lo, run_hi)
+    uu = u.reshape(n_tiles, tile, 3)
+    out = torch.zeros((dep_packed.shape[1], 3), dtype=torch.float32,
+                      device=packed.device)
+    for tl, lane, _, m in interval_pairs(wt.long()[item], wa.long()[item],
+                                         wb.long()[item], packed.reshape(n_tiles, tile, 8),
+                                         dep_packed, pairs_per_step):
+        out.index_add_(0, lane, (m[:, :, None] * uu[tl]).sum(1))
+    return out.T.contiguous()
+
+
+def _check_layout(packed, dep_packed, tile, dev):
+    c_pad = packed.shape[0]
+    check("packed", packed, torch.float32, (c_pad, 8), dev)
+    check("dep_packed", dep_packed, torch.float32, (16, None), dev)
+    if not 1 <= tile <= 1024 or c_pad % tile:
+        raise ValueError(f"c_pad {c_pad} is not a whole number of tiles of "
+                         f"{tile} (1..1024) slots")
+    return c_pad // tile
+
+
+def _deposit_lane_cuda(item_lo, item_hi, wa, wb, packed, dep_packed):
+    dev = packed.device
+    n_tiles = item_lo.shape[0]
+    W = wa.shape[0]
+    check("item_lo", item_lo, torch.int32, (n_tiles,), dev)
+    check("item_hi", item_hi, torch.int32, (n_tiles,), dev)
+    check("wa", wa, torch.int32, (W,), dev)
+    check("wb", wb, torch.int32, (W,), dev)
+    if n_tiles < 1 or packed.shape[0] % n_tiles:
+        raise ValueError(f"{packed.shape[0]} hit slots are not {n_tiles} tiles")
+    tile = packed.shape[0] // n_tiles
+    _check_layout(packed, dep_packed, tile, dev)
+    out = torch.empty((packed.shape[0], 8), dtype=torch.float32, device=dev)
+    FORWARD.launch(dev, ptr(item_lo), ptr(item_hi), n_tiles, tile, ptr(wa), ptr(wb),
+                   ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+    return out
+
+
+def deposit_lane(item_lo: torch.Tensor, item_hi: torch.Tensor, wa: torch.Tensor,
+                 wb: torch.Tensor, packed: torch.Tensor,
+                 dep_packed: torch.Tensor) -> torch.Tensor:
+    """Count (col 0) and raw RGB flux (cols 1:4) per hit slot, (c_pad, 8).
+
+    ``item_lo``, ``item_hi``: (n_tiles,) int32 runs of work items per tile;
+    ``wa``, ``wb``: (W,) int32 lane masks; ``packed``: (c_pad, 8) hit slots;
+    ``dep_packed``: (16, Dp) sorted deposits.  CUDA tensors launch kernel #3
+    (or raise); CPU tensors take :func:`deposit_lane_plain`.
+    """
+    if packed.is_cuda:
+        return _deposit_lane_cuda(item_lo, item_hi, wa, wb, packed, dep_packed)
+    if packed.device.type == "cpu":
+        return deposit_lane_plain(item_lo, item_hi, wa, wb, packed, dep_packed)
+    raise ValueError(f"no lane deposit kernel for device {packed.device}")
+
+
+def _deposit_lane_bwd_cuda(run_lo, run_hi, wt, wa, wb, packed, u, dep_packed,
+                           tile, chunk):
+    dev = packed.device
+    n_blocks = run_lo.shape[0]
+    W = wt.shape[0]
+    check("run_lo", run_lo, torch.int32, (n_blocks,), dev)
+    check("run_hi", run_hi, torch.int32, (n_blocks,), dev)
+    for name, x in (("wt", wt), ("wa", wa), ("wb", wb)):
+        check(name, x, torch.int32, (W,), dev)
+    _check_layout(packed, dep_packed, tile, dev)
+    check("u", u, torch.float32, (packed.shape[0], 3), dev)
+    Dp = dep_packed.shape[1]
+    if not 1 <= chunk <= 1024 or Dp != n_blocks * chunk:
+        raise ValueError(f"Dp {Dp} is not {n_blocks} chunks of {chunk} (1..1024) lanes")
+    out = torch.empty((3, Dp), dtype=torch.float32, device=dev)
+    if n_blocks:
+        BACKWARD.launch(dev, ptr(run_lo), ptr(run_hi), n_blocks, chunk, ptr(wt), ptr(wa),
+                        ptr(wb), tile, ptr(packed), ptr(u), ptr(dep_packed), Dp, ptr(out))
+    return out
+
+
+def deposit_lane_bwd(run_lo: torch.Tensor, run_hi: torch.Tensor, wt: torch.Tensor,
+                     wa: torch.Tensor, wb: torch.Tensor, packed: torch.Tensor,
+                     u: torch.Tensor, dep_packed: torch.Tensor, tile: int,
+                     chunk: int) -> torch.Tensor:
+    """(3, Dp) d_flux per sorted deposit lane: the transpose of
+    :func:`deposit_lane` over chunk-sorted items.
+
+    ``run_lo``, ``run_hi``: (Dp / chunk,) int32 runs of items per deposit
+    chunk; ``wt``, ``wa``, ``wb``: (W',) int32 item tile and lane mask;
+    ``u``: (c_pad, 3) cotangent rows.  CUDA tensors launch kernel #4 (or
+    raise); CPU tensors take :func:`deposit_lane_bwd_plain`.
+    """
+    if packed.is_cuda:
+        return _deposit_lane_bwd_cuda(run_lo, run_hi, wt, wa, wb, packed, u,
+                                      dep_packed, tile, chunk)
+    if packed.device.type == "cpu":
+        return deposit_lane_bwd_plain(run_lo, run_hi, wt, wa, wb, packed, u,
+                                      dep_packed, tile)
+    raise ValueError(f"no lane deposit kernel for device {packed.device}")
+
+
+class _LaneDeposit(torch.autograd.Function):
+    """``DepositLane`` with gradients into ``hp.wgt`` and ``dep.flux``
+    (JAX ``_lane_deposit_diff``): the forward keeps the flux row sums, the
+    backward returns d_wgt = g_tao fl / pi and d_flux from kernel #4 with
+    u = wgt g_tao / pi."""
+
+    @staticmethod
+    def forward(ctx, depo, hp, dep, prep, wgt, flux):
+        hp, dep = hp.replace(wgt=wgt), dep.replace(flux=flux)
+        cnt, d_tao, overflow, fl = depo._forward_full(hp, dep, prep)
+        ctx.depo, ctx.hp, ctx.dep, ctx.prep = depo, hp, dep, prep
+        ctx.save_for_backward(wgt, fl)
+        ctx.mark_non_differentiable(cnt, overflow)
+        return cnt, d_tao, overflow
+
+    @staticmethod
+    def backward(ctx, _g_cnt, g_tao, _g_overflow):
+        wgt, fl = ctx.saved_tensors
+        d_wgt = g_tao * fl / math.pi
+        d_flux = None
+        if ctx.needs_input_grad[5]:
+            u = wgt * g_tao / math.pi
+            d_flux = ctx.depo._backward_flux(ctx.hp, ctx.dep, ctx.prep, u)
+        return None, None, None, None, d_wgt, d_flux
+
+
+class DepositLane(DepositTile):
+    """``deposit_fn(hp, dep) -> (d_nphot, d_tao, overflow)``, lane-granular.
+
+    ``overflow`` bounds the candidate lanes dropped by ``work_cap`` (0 =
+    exact); ``photon_rounds`` folds it into ``deposits_dropped``.  With
+    ``differentiable=True`` calls go through the custom backward and
+    ``photon_rounds`` keeps the hit-point-order path.
+    """
+
+    def __init__(self, tile: int = 256, chunk: int = 512, work_cap: int = 16384,
+                 merge_z: bool = True, differentiable: bool = False, **kw):
+        kw.setdefault("bucket2d", True)
+        super().__init__(tile=tile, chunk=chunk, **kw)
+        if chunk % FETCH_ALIGN:
+            raise ValueError(f"chunk must be a multiple of {FETCH_ALIGN} lanes")
+        self.work_cap = work_cap
+        self.merge_z = merge_z and self.bucket2d
+        self.differentiable = differentiable
+        if self.merge_z:
+            # One merged window per dx: lo at (dx, kz - 1) with the tile's
+            # y_lo, hi at (dx, kz + 1) with its y_hi.
+            self.win_offs = [dx * self.n_bz for dx in (-1, 0, 1)]
+            self.win_offs_lo = [dx * self.n_bz - 1 for dx in (-1, 0, 1)]
+            self.win_offs_hi = [dx * self.n_bz + 1 for dx in (-1, 0, 1)]
+
+    def work_items(self, hp: HitPoints, dep: Deposits, prep: HpLayout | None = None):
+        """The true work-item count of these inputs (for sizing ``work_cap``)."""
+        if prep is None:
+            prep = self.prepare(hp)
+        n_tiles = self._c_pad(hp.capacity) // self.tile
+        dkeys, _, _ = self._dep_sorted(dep, self.chunk)
+        sk, ek = self._window_lanes(prep, dkeys, n_tiles)
+        a0 = (sk // FETCH_ALIGN) * FETCH_ALIGN
+        nch = torch.where(ek > sk, (ek - a0 + self.chunk - 1) // self.chunk, 0)
+        return nch.sum()
+
+    def _build_items(self, sk, ek, n_tiles: int, W: int, Dp: int, align: int):
+        """Flatten the (tile, window) lane intervals into W work items.
+
+        Chunks lie on an ``align``-aligned grid anchored at each window's
+        start; an item's lane interval [wa, wb) is what it counts, so grid
+        slop never double counts or misses a lane.  The forward uses
+        ``FETCH_ALIGN``, the backward ``chunk`` (each item then lies in one
+        deposit chunk).  Returns (wt, f, wa, wb, nc_tile, cum, total), the
+        first four (W,) int32; pad items beyond ``total`` have wa = wb = 0
+        and the last real item's tile and fetch.
+        """
+        ch = self.chunk
+        K = sk.shape[1]
+        sk, ek = sk.long(), ek.long()
+        a0 = (sk // align) * align                              # (n_tiles, K)
+        nch = torch.where(ek > sk, (ek - a0 + ch - 1) // ch, 0)
+        nc_tile = nch.sum(1)                                    # (n_tiles,)
+        cum = torch.cumsum(nc_tile, 0)
+        total = cum[-1]
+        s_idx = torch.arange(W, device=sk.device)
+        wt = torch.clamp_max(torch.searchsorted(cum, s_idx, right=True), n_tiles - 1)
+        j = s_idx - (cum[wt] - nc_tile[wt])                     # chunk within tile
+        ncc_w = torch.cumsum(nch, 1)[wt]                        # (W, K)
+        w_id = torch.clamp_max((j[:, None] >= ncc_w).sum(1), K - 1)
+        prev = torch.gather(ncc_w, 1, torch.clamp_min(w_id - 1, 0)[:, None])[:, 0]
+        jk = j - torch.where(w_id > 0, prev, 0)
+        pick = lambda a: torch.gather(a[wt], 1, w_id[:, None])[:, 0]
+        f = pick(a0) + jk * ch
+        wa = torch.maximum(pick(sk), f)
+        wb = torch.minimum(pick(ek), f + ch)
+        # The TPU clamps the fetch into [0, Dp - ch]; the mask stays inside.
+        f = torch.clamp(f, 0, Dp - ch)
+        live = s_idx < total
+        last = torch.clamp(total - 1, 0, W - 1)
+        i32 = lambda x: x.to(torch.int32)
+        return (i32(torch.where(live, wt, wt[last])), i32(torch.where(live, f, f[last])),
+                i32(torch.where(live, wa, 0)), i32(torch.where(live, wb, 0)),
+                nc_tile, cum, total)
+
+    def __call__(self, hp: HitPoints, dep: Deposits, prep: HpLayout | None = None):
+        if prep is None:
+            prep = self.prepare(hp)
+        if self.differentiable:
+            return _LaneDeposit.apply(self, hp, dep, prep, hp.wgt, dep.flux)
+        cnt, d_tao, overflow, _ = self._forward_full(hp, dep, prep)
+        return cnt, d_tao, overflow
+
+    def _forward_full(self, hp: HitPoints, dep: Deposits, prep: HpLayout):
+        """(cnt, d_tao, overflow, raw flux row sums), in hit-point order."""
+        packed = prep.packed.clone()
+        packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+        cnt_pad, fl_pad, overflow = self._kernel_call(packed, dep, prep)
+        cnt, fl = self.unpack_state(prep, cnt_pad, fl_pad)
+        return cnt, hp.wgt * fl / math.pi, overflow, fl     # Raytracer.h:156
+
+    def forward_items(self, sk, ek, n_tiles: int, Dp: int):
+        """Kernel #3's work list: (item_lo, item_hi, wa, wb, overflow).
+
+        Each tile runs its items below the cap: a tile whose items straddle
+        W keeps its partial sums, one whose first item is at or beyond W (or
+        that has none) reads 0.  ``overflow`` bounds the lanes dropped.
+        """
+        W = self.work_cap
+        _, _, wa, wb, nc_tile, cum, total = self._build_items(
+            sk, ek, n_tiles, W, Dp, FETCH_ALIGN)
+        item_hi = torch.clamp_max(cum, W)
+        item_lo = torch.minimum(cum - nc_tile, item_hi)
+        overflow = (torch.clamp_min(total - W, 0) * self.chunk).to(torch.int32)
+        return item_lo.to(torch.int32), item_hi.to(torch.int32), wa, wb, overflow
+
+    def backward_items(self, sk, ek, n_tiles: int, Dp: int):
+        """Kernel #4's work list: (run_lo, run_hi, wt, wa, wb).
+
+        The forward's intervals cut at chunk alignment (at most one item
+        more per window than the forward's, so the cap W' = work_cap + K
+        n_tiles truncates only when the forward's did), sorted by deposit
+        chunk (stably; pads last) so that each chunk's items form one run.
+        """
+        ch = self.chunk
+        W = self.work_cap + len(self.win_offs) * n_tiles
+        wt, f, wa, wb, _, _, _ = self._build_items(sk, ek, n_tiles, W, Dp, ch)
+        block = torch.where(wa < wb, f // ch, Dp // ch)
+        block, order = torch.sort(block, stable=True)
+        blocks = torch.arange(Dp // ch, dtype=block.dtype, device=block.device)
+        run_lo = torch.searchsorted(block, blocks).to(torch.int32)
+        run_hi = torch.searchsorted(block, blocks, right=True).to(torch.int32)
+        return (run_lo, run_hi, wt[order].contiguous(), wa[order].contiguous(),
+                wb[order].contiguous())
+
+    def _kernel_call(self, packed: torch.Tensor, dep: Deposits, prep: HpLayout):
+        """(cnt_pad, flux_pad, overflow) in layout space, through kernel #3."""
+        n_tiles = packed.shape[0] // self.tile
+        dkeys, dep_packed, Dp = self._dep_sorted(dep, self.chunk)
+        sk, ek = self._window_lanes(prep, dkeys, n_tiles)
+        item_lo, item_hi, wa, wb, overflow = self.forward_items(sk, ek, n_tiles, Dp)
+        out = deposit_lane(item_lo, item_hi, wa, wb, packed, dep_packed)
+        return out[:, 0], out[:, 1:4], overflow
+
+    def _backward_flux(self, hp: HitPoints, dep: Deposits, prep: HpLayout,
+                       u: torch.Tensor) -> torch.Tensor:
+        """Transposed banded product d_flux[j] = sum_i m_ij u_i, (D, 3),
+        over the forward's layout and lane intervals (``backward_items``);
+        the sorted lanes' sums are unsorted by the deposit order."""
+        t, ch = self.tile, self.chunk
+        c_pad = self._c_pad(hp.capacity)
+        n_tiles = c_pad // t
+        packed = prep.packed.clone()
+        packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+        D = dep.pos.shape[0]
+        dkeys, dep_packed, Dp, d_ord = self._dep_sorted(dep, ch, with_order=True)
+        sk, ek = self._window_lanes(prep, dkeys, n_tiles)
+        items = self.backward_items(sk, ek, n_tiles, Dp)
+        u_packed = torch.zeros((c_pad, 3), dtype=torch.float32, device=u.device)
+        u_packed[prep.g] = u.to(torch.float32)
+        out = deposit_lane_bwd(*items, packed, u_packed, dep_packed, t, ch)
+        d_flux = torch.zeros((D, 3), dtype=torch.float32, device=u.device)
+        d_flux[d_ord] = out[:, :D].T
+        return d_flux

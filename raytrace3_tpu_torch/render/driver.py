@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.sampling import TWO_PI, as_draws, uniform_sphere
 from ..geometry.scene import Scene
 from ..scenes import get_scene
@@ -20,11 +21,13 @@ from .deposit import deposit_bruteforce
 from .sppm import render_pass
 
 
-def build_scene(cfg: RenderConfig, device="cpu") -> Scene:
-    """The config's scene on ``device``.  ``cfg.newton_restarts`` is the
-    JAX jnp solver's grid side and is not read: the port's solver carries
-    its own restart count."""
-    scene = get_scene(cfg.scene, atlas_res=cfg.atlas_res, device=device)
+def build_scene(cfg: RenderConfig, device=DEFAULT_DEVICE) -> Scene:
+    """The config's scene on ``device``, the card unless the caller asks
+    for the CPU (``core.device``).  ``cfg.newton_restarts`` is the JAX jnp
+    solver's grid side and is not read: the port's solver carries its own
+    restart count."""
+    scene = get_scene(cfg.scene, atlas_res=cfg.atlas_res,
+                      device=resolve_device(device))
     return scene.replace(bezier_compact_frac=cfg.bezier_compact_frac,
                          newton_iters=cfg.newton_iters)
 
@@ -36,15 +39,14 @@ def make_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
     ``rng`` is a ``torch.Generator`` on the scene's device (or a draws
     source).  The camera jitter (Raytracer.h:429-441: pos + 0.00015 x a
     random unit vector, then lookAt) is drawn first, then the photon walk's
-    uniforms.  The port runs the main path only: ``photon_regen``, a
-    nonempty ``eye_compact_schedule``, ``slots=1`` and no deposit
-    compaction.
+    uniforms.  Ported: either photon walk, the staged or the slot eye
+    wavefront at ``slots=1``; the K-slot wavefront and deposit compaction
+    wait for a later slice.
     """
-    if not cfg.photon_regen or not cfg.eye_compact_schedule or cfg.slots != 1 \
-            or cfg.deposit_compact_frac < 1.0:
+    if cfg.slots != 1 or cfg.deposit_compact_frac < 1.0:
         raise NotImplementedError(
-            "the port runs the main path: photon_regen=True, an "
-            "eye_compact_schedule, slots=1, deposit_compact_frac=1.0")
+            "the port runs slots=1 and deposit_compact_frac=1.0; the K-slot "
+            "eye wavefront and deposit compaction wait for a later slice")
     dev = scene.device
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     base_pos, base_look = f32(base_pos), f32(base_look)
@@ -65,7 +67,6 @@ def make_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
             hitpoint_capacity=cfg.hitpoint_capacity,
             n_rounds=cfg.rounds,
             photons_per_round=cfg.photons_per_round,
-            eye_compact_schedule=cfg.eye_compact_schedule,
             max_depth=cfg.max_depth,
             init_r2=cfg.init_r2,
             update_mode=cfg.update_mode,
@@ -73,6 +74,8 @@ def make_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
             newton_fn=newton_fn,
             debias_roulette=cfg.debias_roulette,
             photon_scene=photon_scene,
+            photon_regen=cfg.photon_regen,
+            eye_compact_schedule=cfg.eye_compact_schedule,
         )
         return img.reshape(cfg.height, cfg.width, 3), stats
 

@@ -1,11 +1,18 @@
 """PASS 1 - eye trace: the staged-width wavefront emitting SPPM hit points.
 
-Port of ``raytrace3_tpu/render/eye.py``'s compact-schedule path
-(``_eye_pass_compact``): diffuse lobes store hit points, every lane carries
-exactly one specular continuation, and at each scheduled segment the
-surviving rays are gathered into a narrower buffer (overflow is counted in
-``dropped``).  The K-slot wavefront (``eye_pass`` without a schedule) waits
-for a later slice.
+Port of ``raytrace3_tpu/render/eye.py`` at one slot per pixel: diffuse
+lobes store hit points and every lane carries exactly one specular
+continuation (a second one is dropped and counted).  Two schedules:
+
+* the slot wavefront (``eye_pass`` with no schedule, JAX's ``K == 1``
+  branch): all R lanes walk every segment, and each segment's hit points
+  scatter into the buffer at once, so autograd reaches their weights;
+* the staged-width wavefront (``_eye_pass_compact``): at each scheduled
+  segment the surviving rays are gathered into a narrower buffer, and the
+  hit points scatter once at the end.
+
+Overflow (of a stage or of the buffer) is counted in ``dropped``.  The
+K-slot wavefront with K > 1 waits for a later slice.
 """
 
 from __future__ import annotations
@@ -65,15 +72,19 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
 
     ``compact_schedule``: ((segment, frac), ...): at the start of each
     listed segment (>= 1) the surviving rays are gathered into a buffer of
-    ``frac * R`` lanes (rounded up to 128).  Required here: the port has
-    only this path so far.
+    ``frac * R`` lanes (rounded up to 128).  Empty: the slot wavefront.
+    Only ``slots=1`` is ported.
     """
-    if not compact_schedule or slots != 1:
+    if slots != 1:
         raise NotImplementedError(
-            "the port's eye pass is the compact-schedule path (slots=1); the "
-            "K-slot wavefront waits for a later slice")
-    return _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
-                             newton_fn, pixel_offset, compact_schedule)
+            "the port's eye pass has one slot per pixel; the K-slot "
+            "wavefront (slots > 1) waits for a later slice")
+    if compact_schedule:
+        return _eye_pass_compact(scene, org, dir, capacity, max_depth,
+                                 init_r2, newton_fn, pixel_offset,
+                                 compact_schedule)
+    return _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
+                           newton_fn, pixel_offset)
 
 
 def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None):
@@ -111,15 +122,54 @@ def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None):
     return (rec.pos, prim_d, prim_w, px, prim_v), n_dropped, rows
 
 
+def _primary_lanes(org, dir, pixel_offset):
+    R = org.shape[0]
+    dtype, dev = org.dtype, org.device
+    return (org, dir, torch.ones((R, 3), dtype=dtype, device=dev),
+            torch.arange(R, dtype=torch.int32, device=dev) + pixel_offset,
+            torch.ones((R,), dtype=torch.bool, device=dev))
+
+
+def _hitpoints(buf, capacity, init_r2):
+    """HitPoints from a (capacity, 11) buffer of candidate rows."""
+    return make_hitpoints(capacity, init_r2, buf.device, buf.dtype).replace(
+        pos=buf[:, 0:3], n=buf[:, 3:6], wgt=buf[:, 6:9],
+        pixel=buf[:, 9].to(torch.int32), valid=buf[:, 10] > 0.5)
+
+
+def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
+                    newton_fn, pixel_offset):
+    """The slot wavefront at one slot: every segment's hit points go to the
+    next free buffer slots in lane order (Raytracer.h:312-319); once the
+    buffer is full the rest are dropped and counted.  The scatter is out of
+    place, so every version of the buffer stays in the autograd graph."""
+    dev = org.device
+    fetch_mat = _eye_material_lanes(scene)
+    lanes = _primary_lanes(org, dir, pixel_offset)
+    buf = torch.zeros((capacity + 1, 11), dtype=org.dtype, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_depth + 1):
+        lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn)
+        valid = rows[:, 10] > 0.5
+        slot = count + torch.cumsum(valid.to(torch.int32), 0) - 1
+        widx = torch.where(valid & (slot < capacity), slot, capacity).long()
+        buf = buf.index_put((widx,), rows)     # row `capacity` takes the rest
+        n_new = valid.sum(dtype=torch.int32)
+        new_count = torch.clamp_max(count + n_new, capacity)
+        dropped = dropped + n_dropped + (count + n_new - new_count)
+        count = new_count
+    return _hitpoints(buf[:capacity], capacity, init_r2), {"count": count,
+                                                           "dropped": dropped}
+
+
 def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
                       newton_fn, pixel_offset, schedule):
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
     fetch_mat = _eye_material_lanes(scene)
 
-    lanes = (org, dir, torch.ones((R, 3), dtype=dtype, device=dev),
-             torch.arange(R, dtype=torch.int32, device=dev) + pixel_offset,
-             torch.ones((R,), dtype=torch.bool, device=dev))
+    lanes = _primary_lanes(org, dir, pixel_offset)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
     segs_total = max_depth + 1
@@ -156,11 +206,7 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
     widx = torch.where(valid & (slot < capacity), slot, capacity).long()
     buf = torch.zeros((capacity + 1, 11), dtype=dtype, device=dev)
     buf[widx] = rows                       # row `capacity` takes the rest
-    buf = buf[:capacity]
-
-    hp = make_hitpoints(capacity, init_r2, dev, dtype).replace(
-        pos=buf[:, 0:3], n=buf[:, 3:6], wgt=buf[:, 6:9],
-        pixel=buf[:, 9].to(torch.int32), valid=buf[:, 10] > 0.5)
+    hp = _hitpoints(buf[:capacity], capacity, init_r2)
     n_valid = valid.sum(dtype=torch.int32)
     count = torch.clamp_max(n_valid, capacity)
     dropped = dropped + torch.clamp_min(n_valid - capacity, 0)

@@ -13,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from .core.device import DEFAULT_DEVICE, resolve_device
 from .core.types import Materials
 from .geometry.bezier import BezierObject, load_bpt, teapot_transform
 from .geometry.plane import make_planes
@@ -77,17 +78,19 @@ def _teapot_ctrl(device="cpu") -> torch.Tensor:
 
 
 def reference_camera(width: int = 1024, height: int = 1024,
-                     device="cpu") -> Camera:
+                     device=DEFAULT_DEVICE) -> Camera:
     """The main.cpp:22-27 pose: (50, 35, 230) looking along (0, 0.042612, -1)."""
+    device = resolve_device(device)
     pos = np.array([50.0, 35.0, 230.0])
     return look_at(_f32(pos, device), _f32(pos + np.array([0.0, 0.042612, -1.0]), device),
                    width, height)
 
 
 def full(atlas_res: int = 256, bezier_uv_quirk: bool = True,
-         device="cpu") -> Scene:
+         device=DEFAULT_DEVICE) -> Scene:
     """The reference's object list: ids 0-4 planes, 5 mirror sphere, 6 glass
     sphere, 7 planet sphere, 8 teapot."""
+    device = resolve_device(device)
     planes, spheres = _cornell_geometry(device)
     mats = [WHITE_DIFF, WHITE_DIFF, MIRROR, WHITE_DIFF, WHITE_DIFF,
             MIRROR, REFR0, WHITE_DIFF, WHITE_DIFF]
@@ -112,7 +115,7 @@ def full(atlas_res: int = 256, bezier_uv_quirk: bool = True,
 REGISTRY = {"full": full}
 
 
-def get_scene(name: str, **kw) -> Scene:
+def get_scene(name: str, device=DEFAULT_DEVICE, **kw) -> Scene:
     if name not in REGISTRY:
         raise KeyError(f"scene '{name}' is not ported yet; have {sorted(REGISTRY)}")
-    return REGISTRY[name](**kw)
+    return REGISTRY[name](device=device, **kw)

@@ -9,8 +9,9 @@ pass with its walk steps recorded by host callbacks differ in
 ``photons_emitted`` and by ~5% in image L1 at 32 x 32 (measured on the CPU).
 
 So a run under test is compared with a reference run segment by segment.
-:func:`pinned_segments` replaces ``render.eye.eye_segment`` and
-``render.photon.regen_segment`` with wrappers that, for each call,
+:func:`pinned_segments` replaces ``render.eye.eye_segment`` (both eye
+wavefronts), ``render.photon.regen_segment`` and
+``render.photon.static_segment`` with wrappers that, for each call,
 
 1. check the segment's input against the reference's input for that segment
    (discrete fields exactly; floats to the tolerances below, since the
@@ -19,6 +20,12 @@ So a run under test is compared with a reference run segment by segment.
 3. compare its output with the reference's output lane by lane;
 4. return the reference's output, so the next segment again starts from the
    reference's state.
+
+The reference's values are handed on without cutting the run's autograd
+graph: a float tensor that carries a graph becomes ``ref + (x - x)``, with
+the value of the reference and the gradient of the run's own ``x``
+(:func:`pin`).  So a held run's gradients are the run's own, taken along
+the reference's path.
 
 Every decision must agree exactly: hit or miss, diffuse record, continuation,
 refill, depth, drop and emission counters, and the pixel of each hit point.
@@ -50,7 +57,9 @@ reference's hit, or for self-hits by either side's):
 
 A reference is a list of ``(input, output)`` pairs per walk, in the port's
 calling convention: for ``eye_segment`` ``(lanes, (lanes, n_dropped,
-rows))``, for ``regen_segment`` ``(carry, (carry, record))``.
+rows))``, for ``regen_segment`` and ``static_segment`` ``(carry, (carry,
+record))``.  A reference may leave the normal of a hit-point row that
+stores nothing unknown (NaN); it is then not compared.
 :func:`recording_segments` records one from a run of the port.
 """
 
@@ -131,6 +140,19 @@ def _to(x, device):
     return type(x)(_to(v, device) for v in x)
 
 
+def pin(got, ref):
+    """``ref``'s value with ``got``'s autograd graph: for a float tensor
+    that carries a graph, ``ref + (g - g)`` with g = ``got`` where finite
+    (the value is ``ref`` exactly, the gradient ``got``'s); otherwise
+    ``ref``.  Recurses into tuples."""
+    if isinstance(got, torch.Tensor):
+        if not got.requires_grad:
+            return ref
+        g = torch.where(torch.isfinite(got), got, 0.0)
+        return ref + (g - g.detach())
+    return type(ref)(pin(x, r) for x, r in zip(got, ref))
+
+
 def _lane_max(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax(-1) if x.dim() > 1 else x.abs()
 
@@ -161,6 +183,7 @@ def _close(report: Report, what: str, err: torch.Tensor, mask: torch.Tensor,
     """Per-lane ``err`` within ``tol`` on the lanes of ``mask``.  A lane in
     one of ``classes`` ((name, lanes, tolerance), first match wins) is held
     to that class's tolerance instead; tolerances are floats or per-lane."""
+    err = err.detach()
     limit = torch.as_tensor(tol, dtype=err.dtype, device=err.device).expand_as(err)
     plain = mask.clone()
     for name, lanes, cls_tol in classes:
@@ -185,7 +208,8 @@ def _hit_checks(report: Report, walk: str, origin, got_pos, got_n, want_pos,
     two sides then took different paths (another decision, or another
     surface): there the self-hit root straddles M_EPS on one side and not
     on the other, and the lane is left out of every check (``self-hit
-    flip`` in the report).  Positions and normals are held on the other
+    flip`` in the report).  A lane neither side keeps (every decision
+    false on both) is never compared and never counts as a flip.  Positions and normals are held on the other
     ``live`` lanes.  Returns the lanes held and their far-field and
     self-hit classes."""
     t, t_got = _norm(want_pos - origin), _norm(got_pos - origin)
@@ -193,7 +217,12 @@ def _hit_checks(report: Report, walk: str, origin, got_pos, got_n, want_pos,
     differ = _lane_max(got_pos - want_pos) > SELF_POS_ATOL
     for _, got, want in decisions:
         differ |= got != want
-    flip = (torch.minimum(t, t_got) < FLIP_T) & differ
+    # A lane that neither side keeps (no decision taken on either) is not
+    # compared at all, so it cannot flip.
+    kept = torch.zeros_like(differ)
+    for _, got, want in decisions:
+        kept |= got | want
+    flip = (torch.minimum(t, t_got) < FLIP_T) & differ & kept
     report.lanes["self-hit flip"] = report.lanes.get("self-hit flip", 0) + int(flip.sum())
     for what, got, want in decisions:
         _exact(f"{walk} {what}", got[~flip], want[~flip])
@@ -204,8 +233,9 @@ def _hit_checks(report: Report, walk: str, origin, got_pos, got_n, want_pos,
     _close(report, f"{walk} position", _lane_max(got_pos - want_pos) / scale, held,
            POS_RTOL, [("self-hit", self_hit, SELF_POS_ATOL / scale),
                       ("far field", far, FAR_POS_RTOL)])
-    _close(report, f"{walk} normal", _lane_max(got_n - want_n), held, NORMAL_ATOL,
-           [("self-hit", self_hit, SELF_NORMAL_ATOL)])
+    known = torch.isfinite(want_n).all(-1)
+    _close(report, f"{walk} normal", _lane_max(got_n - torch.where(known[:, None], want_n, 0.0)),
+           held & known, NORMAL_ATOL, [("self-hit", self_hit, SELF_NORMAL_ATOL)])
     return ~flip, far, self_hit
 
 
@@ -276,82 +306,123 @@ def check_photon_segment(carry_in, light_pos, got, want, report: Report) -> None
            COLOR_RTOL, _colour_classes(far, self_hit))
 
 
-@contextlib.contextmanager
-def pinned_segments(eye_steps=None, photon_steps=None):
-    """Within the block, every eye / photon segment of the port is held to
-    the next step of ``eye_steps`` / ``photon_steps`` (see the module note)
-    and hands on the reference's output.  Yields a :class:`Report`; a walk
-    left unpinned (None) runs as usual."""
+def check_static_input(got, want, report: Report) -> None:
+    o, d, f, alive = want
+    _exact("static photon input alive", got[3], alive)
+    _close(report, "static photon input origin",
+           _lane_max(got[0] - o) / torch.clamp_min(_norm(o), 1.0), alive, POS_RTOL)
+    _close(report, "static photon input direction", _lane_max(got[1] - d), alive, DIR_ATOL)
+    _close(report, "static photon input flux", _rel(got[2], f), alive, COLOR_RTOL)
+
+
+def check_static_segment(carry_in, got, want, report: Report) -> None:
+    """One static-walk segment run on ``carry_in`` against the reference's
+    output."""
+    (g_carry, g_rec), (w_carry, w_rec) = got, want
+    _exact("static photon deposit flux", g_rec[2], w_rec[2])
+    held, far, self_hit = _hit_checks(
+        report, "static photon", carry_in[0], g_rec[0], g_rec[1], w_rec[0], w_rec[1],
+        [("deposit valid", g_rec[3], w_rec[3]), ("alive", g_carry[3], w_carry[3])],
+        w_rec[3] | w_carry[3])
+    _close(report, "static photon direction", _lane_max(g_carry[1] - w_carry[1]),
+           w_carry[3] & held, DIR_ATOL, [("self-hit", self_hit, SELF_NORMAL_ATOL)])
+    _close(report, "static photon flux", _rel(g_carry[2], w_carry[2]), w_carry[3] & held,
+           COLOR_RTOL, _colour_classes(far, self_hit))
+
+
+def _walks():
+    """Each walk's segment function: walk -> (module, name, argument held,
+    input check, output check).  The output check takes the call's bound
+    arguments, the reference input, the run's output and the reference
+    output."""
     from .render import eye, photon
 
-    report = Report()
-    real_eye, real_regen = eye.eye_segment, photon.regen_segment
-    eye_sig, regen_sig = inspect.signature(real_eye), inspect.signature(real_regen)
-    eye_it = iter(eye_steps or ())
-    photon_it = iter(photon_steps or ())
+    return {
+        "eye": (eye, "eye_segment", "lanes", check_eye_input,
+                lambda a, r_in, got, r_out, rep: check_eye_segment(r_in, got, r_out, rep)),
+        "photon": (photon, "regen_segment", "carry", check_photon_input,
+                   lambda a, r_in, got, r_out, rep: check_photon_segment(
+                       r_in, a["light_pos"], got, r_out, rep)),
+        "static": (photon, "static_segment", "carry", check_static_input,
+                   lambda a, r_in, got, r_out, rep: check_static_segment(r_in, got, r_out, rep)),
+    }
 
-    def next_step(it, walk, device):
-        try:
-            ref_in, ref_out = next(it)
-        except StopIteration:
-            raise SegmentMismatch(f"the run has more {walk} segments than its "
-                                  "reference") from None
-        return _to(ref_in, device), _to(ref_out, device)
 
-    def pinned_eye(*args, **kw):
-        a = eye_sig.bind(*args, **kw).arguments
-        ref_in, ref_out = next_step(eye_it, "eye", a["lanes"][0].device)
-        check_eye_input(a["lanes"], ref_in, report)
-        a["lanes"] = ref_in
-        got = real_eye(**a)
-        check_eye_segment(ref_in, got, ref_out, report)
-        report.segments["eye"] += 1
-        return ref_out
-
-    def pinned_regen(*args, **kw):
-        a = regen_sig.bind(*args, **kw).arguments
-        ref_in, ref_out = next_step(photon_it, "photon", a["carry"][0].device)
-        check_photon_input(a["carry"], ref_in, report)
-        a["carry"] = ref_in
-        got = real_regen(**a)
-        check_photon_segment(ref_in, a["light_pos"], got, ref_out, report)
-        report.segments["photon"] += 1
-        return ref_out
-
-    if eye_steps is not None:
-        eye.eye_segment = pinned_eye
-    if photon_steps is not None:
-        photon.regen_segment = pinned_regen
+@contextlib.contextmanager
+def _patched(wrappers: dict):
+    """Within the block, each walk's segment function is ``wrappers[walk]
+    (the real function)``."""
+    walks = _walks()
+    real = {w: getattr(walks[w][0], walks[w][1]) for w in wrappers}
+    for w, make in wrappers.items():
+        setattr(walks[w][0], walks[w][1], make(real[w]))
     try:
-        yield report
+        yield
     finally:
-        eye.eye_segment, photon.regen_segment = real_eye, real_regen
+        for w, fn in real.items():
+            setattr(walks[w][0], walks[w][1], fn)
+
+
+@contextlib.contextmanager
+def pinned_segments(eye_steps=None, photon_steps=None, static_steps=None):
+    """Within the block, every eye / regen photon / static photon segment of
+    the port is held to the next step of ``eye_steps`` / ``photon_steps`` /
+    ``static_steps`` (see the module note) and hands on the reference's
+    output, pinned to the run's graph (:func:`pin`).  Yields a
+    :class:`Report`; a walk left unpinned (None) runs as usual."""
+    report = Report()
+    walks = _walks()
+
+    def pinner(walk, steps):
+        _, _, held, check_in, check_out = walks[walk]
+        it = iter(steps)
+
+        def make(fn):
+            sig = inspect.signature(fn)
+
+            def pinned(*args, **kw):
+                a = sig.bind(*args, **kw).arguments
+                try:
+                    ref_in, ref_out = next(it)
+                except StopIteration:
+                    raise SegmentMismatch(f"the run has more {walk} segments than "
+                                          "its reference") from None
+                device = a[held][0].device
+                ref_in, ref_out = _to(ref_in, device), _to(ref_out, device)
+                check_in(a[held], ref_in, report)
+                a[held] = pin(a[held], ref_in)
+                got = fn(**a)
+                check_out(a, ref_in, got, ref_out, report)
+                report.segments[walk] = report.segments.get(walk, 0) + 1
+                return pin(got, ref_out)
+            return pinned
+        return make
+
+    given = {"eye": eye_steps, "photon": photon_steps, "static": static_steps}
+    with _patched({w: pinner(w, st) for w, st in given.items() if st is not None}):
+        yield report
 
 
 @contextlib.contextmanager
 def recording_segments():
-    """Within the block, record every eye and photon segment of the port as
-    (input, output) on the CPU.  Yields {"eye": [...], "photon": [...]}."""
-    from .render import eye, photon
+    """Within the block, record every eye, regen photon and static photon
+    segment of the port as (input, output) on the CPU.  Yields {"eye":
+    [...], "photon": [...], "static": [...]}."""
+    steps = {w: [] for w in _walks()}
 
-    steps = {"eye": [], "photon": []}
-    real_eye, real_regen = eye.eye_segment, photon.regen_segment
-    eye_sig, regen_sig = inspect.signature(real_eye), inspect.signature(real_regen)
+    def recorder(walk):
+        held = _walks()[walk][2]
 
-    def recording_eye(*args, **kw):
-        a = eye_sig.bind(*args, **kw).arguments
-        out = real_eye(**a)
-        steps["eye"].append((_to(a["lanes"], "cpu"), _to(out, "cpu")))
-        return out
+        def make(fn):
+            sig = inspect.signature(fn)
 
-    def recording_regen(*args, **kw):
-        a = regen_sig.bind(*args, **kw).arguments
-        out = real_regen(**a)
-        steps["photon"].append((_to(a["carry"], "cpu"), _to(out, "cpu")))
-        return out
+            def recording(*args, **kw):
+                a = sig.bind(*args, **kw).arguments
+                out = fn(**a)
+                steps[walk].append((_to(a[held], "cpu"), _to(out, "cpu")))
+                return out
+            return recording
+        return make
 
-    eye.eye_segment, photon.regen_segment = recording_eye, recording_regen
-    try:
+    with _patched({w: recorder(w) for w in steps}):
         yield steps
-    finally:
-        eye.eye_segment, photon.regen_segment = real_eye, real_regen

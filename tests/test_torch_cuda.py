@@ -9,7 +9,8 @@ it with:
 
 Tolerances: the kernels are built with -fmad=false and evaluate in the
 plain twins' operation order, so Newton outputs and deposit counts agree
-exactly; deposit flux sums differ only in summation order (rtol 1e-5).
+exactly; deposit flux sums, the lane deposit's and its transpose's,
+differ only in summation order (rtol 1e-5).
 """
 
 import numpy as np
@@ -17,9 +18,13 @@ import pytest
 import torch
 
 from raytrace3_tpu_torch.core.types import Deposits, HitPoints
-from raytrace3_tpu_torch.ops import deposit_kernel, newton_kernel
+from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
 from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
                                                     deposit_tile_plain)
+from raytrace3_tpu_torch.ops.lane_kernel import (DepositLane, deposit_lane,
+                                                 deposit_lane_bwd,
+                                                 deposit_lane_bwd_plain,
+                                                 deposit_lane_plain)
 from raytrace3_tpu_torch.ops.newton_kernel import solve, solve_plain
 from raytrace3_tpu_torch.scenes import _teapot_ctrl
 
@@ -109,3 +114,74 @@ def test_deposit_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     with pytest.raises(TypeError):
         deposit_tile(sk.long(), ek, packed, dep_packed)
+
+
+#: (hit points, deposits): a small case and the train path's sizes
+#: (C = 1.5 x 256^2 hit points, 14 x 32768 deposits).
+LANE_SIZES = {"small": (20000, 100000), "main": (98304, 458752)}
+LANE_KW = dict(tile=256, chunk=512, work_cap=65536, x_lo=-8.0, x_hi=48.0,
+               y_lo=-8.0, y_hi=88.0, z_lo=-8.0, z_hi=168.0)
+
+
+def _lane_round(size, device):
+    C, D = LANE_SIZES[size]
+    hp, dep = _wall_case(np.random.default_rng(1), C, D, device)
+    pd = DepositLane(**LANE_KW)
+    prep = pd.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // pd.tile
+    dkeys, dep_packed, Dp = pd._dep_sorted(dep, pd.chunk)
+    sk, ek = pd._window_lanes(prep, dkeys, n_tiles)
+    return pd, packed, dep_packed, sk, ek, n_tiles, Dp, hp, dep, prep
+
+
+@pytest.mark.parametrize("size", sorted(LANE_SIZES))
+def test_lane_kernels_match_plain(cuda_device, size):
+    pd, packed, dep_packed, sk, ek, n_tiles, Dp, *_ = _lane_round(size, cuda_device)
+    lo, hi, wa, wb, overflow = pd.forward_items(sk, ek, n_tiles, Dp)
+    assert int(overflow) == 0
+    before = (lane_kernel.FORWARD.launches, lane_kernel.BACKWARD.launches)
+    got = deposit_lane(lo, hi, wa, wb, packed, dep_packed)
+    torch.cuda.synchronize()
+    want = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed)
+    assert float(want[:, 0].sum()) > 1000
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+    items = pd.backward_items(sk, ek, n_tiles, Dp)
+    u = torch.rand((packed.shape[0], 3), generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    got = deposit_lane_bwd(*items, packed, u, dep_packed, pd.tile, pd.chunk)
+    torch.cuda.synchronize()
+    want = deposit_lane_bwd_plain(*items, packed, u, dep_packed, pd.tile)
+    assert float(want.sum()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (lane_kernel.FORWARD.launches, lane_kernel.BACKWARD.launches) == \
+        (before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError):
+        deposit_lane(lo.long(), hi, wa, wb, packed, dep_packed)
+
+
+def test_lane_vjp_on_the_card_matches_the_cpu(cuda_device):
+    """DepositLane(differentiable=True) on the card (kernels #3 and #4)
+    against the same call on the CPU (the plain twins): counts exact,
+    d_tao, d_wgt and d_flux to rtol 1e-5."""
+    pd, *_, hp, dep, prep = _lane_round("small", cuda_device)
+    pd.differentiable = True
+    tgt = torch.as_tensor(np.random.default_rng(2).normal(size=(hp.capacity, 3)),
+                          dtype=torch.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        h = hp.replace(**{f: getattr(hp, f).to(dev) for f in ("pos", "n", "wgt", "pixel",
+                                                             "valid", "r2", "nphot", "tao")})
+        d = dep.replace(**{f: getattr(dep, f).to(dev) for f in ("pos", "n", "flux", "valid")})
+        wgt, flux = h.wgt.clone().requires_grad_(True), d.flux.clone().requires_grad_(True)
+        cnt, tao, ovf = pd(h.replace(wgt=wgt), d.replace(flux=flux))
+        (tao * tgt.to(dev)).sum().backward()
+        out[dev.type] = [x.detach().cpu() for x in (cnt, tao, wgt.grad, flux.grad)] + [int(ovf)]
+    g, c = out["cuda"], out["cpu"]
+    torch.testing.assert_close(g[0], c[0], rtol=0, atol=0)
+    for a, b in zip(g[1:4], c[1:4]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert g[4] == c[4] == 0 and float(c[3].abs().sum()) > 0

@@ -17,14 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-import torch_port_util  # noqa: F401  (thread count)
-from raytrace3_tpu.core.types import Deposits as JDeposits
-from raytrace3_tpu.core.types import make_hitpoints as j_make_hitpoints
+from torch_port_util import port_records as _port
+from torch_port_util import random_case as _random_case
+from torch_port_util import wall_case as _wall_case
 from raytrace3_tpu.ops.deposit_pallas import PallasDepositTile
 from raytrace3_tpu.render.deposit import deposit_bruteforce as j_bruteforce
 
-from raytrace3_tpu_torch.convert import (deposits_from_numpy, flatten_to_numpy,
-                                         hitpoints_from_numpy)
 from raytrace3_tpu_torch.ops import deposit_kernel
 from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
                                                     deposit_tile_plain,
@@ -32,48 +30,6 @@ from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
 from raytrace3_tpu_torch.render.deposit import deposit_bruteforce
 
 KW = dict(x_lo=-8.0, x_hi=48.0, y_lo=-8.0, y_hi=88.0)
-
-
-def _random_case(rng, C=300, D=700):
-    """tests/test_deposit.py:14-35."""
-    hp = j_make_hitpoints(C, init_r2=2.0)
-    pos = rng.uniform(0, 40, size=(C, 3)).astype(np.float32)
-    n = rng.normal(size=(C, 3)).astype(np.float32)
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    hp = hp.replace(
-        pos=jnp.asarray(pos), n=jnp.asarray(n),
-        wgt=jnp.asarray(rng.uniform(0, 1, size=(C, 3)).astype(np.float32)),
-        valid=jnp.asarray(rng.uniform(size=C) > 0.1),
-        r2=jnp.asarray(rng.uniform(0.5, 2.0, size=C).astype(np.float32)))
-    dn = rng.normal(size=(D, 3)).astype(np.float32)
-    dn /= np.linalg.norm(dn, axis=-1, keepdims=True)
-    dep = JDeposits(
-        pos=jnp.asarray(rng.uniform(0, 40, size=(D, 3)).astype(np.float32)),
-        n=jnp.asarray(dn),
-        flux=jnp.asarray(rng.uniform(0, 5, size=(D, 3)).astype(np.float32)),
-        valid=jnp.asarray(rng.uniform(size=D) > 0.2))
-    return hp, dep
-
-
-def _wall_case(rng, C=500, D=3000):
-    """tests/test_deposit.py:129-145: most deposits on an x = 1 wall."""
-    hp, dep = _random_case(rng, C=C, D=D)
-    wallish = rng.uniform(size=D) < 0.6
-    pos = np.asarray(dep.pos).copy()
-    pos[wallish, 0] = 1.0 + rng.uniform(-0.05, 0.05, wallish.sum())
-    pos[wallish, 1] = rng.uniform(0, 80, wallish.sum())
-    pos[wallish, 2] = rng.uniform(0, 160, wallish.sum())
-    hpp = np.asarray(hp.pos).copy()
-    wh = rng.uniform(size=C) < 0.5
-    hpp[wh, 0] = 1.0
-    hpp[wh, 1] = rng.uniform(0, 80, wh.sum())
-    hpp[wh, 2] = rng.uniform(0, 160, wh.sum())
-    return hp.replace(pos=jnp.asarray(hpp)), dep.replace(pos=jnp.asarray(pos))
-
-
-def _port(hp, dep, device="cpu"):
-    return (hitpoints_from_numpy(flatten_to_numpy(hp), device),
-            deposits_from_numpy(flatten_to_numpy(dep), device))
 
 
 def _check(cnt, tao, want_cnt, want_tao):
@@ -177,8 +133,8 @@ def test_packed_rounds_match_hp_space(rng):
     from raytrace3_tpu_torch.render.sppm import photon_rounds
     from raytrace3_tpu_torch.scenes import full, reference_camera
 
-    scene = full(atlas_res=16).replace(bezier_compact_frac=0.2)
-    org, dirs = emit_rays(reference_camera(16, 16))
+    scene = full(atlas_res=16, device="cpu").replace(bezier_compact_frac=0.2)
+    org, dirs = emit_rays(reference_camera(16, 16, device="cpu"))
     php, _ = eye_pass(scene, org, dirs, 512, 4, compact_schedule=((1, 0.5),))
     depo = make_tile_deposit(tile=128, chunk=256, x_lo=-4.0, x_hi=104.0,
                              y_lo=-6.0, y_hi=88.0)
@@ -191,7 +147,7 @@ def test_packed_rounds_match_hp_space(rng):
             return depo(h, d, prep=prep)
 
     run = lambda fn: photon_rounds(scene, GeneratorDraws(torch.Generator().manual_seed(5)),
-                                   php, 2, 256, max_depth=4, deposit_fn=fn)
+                                   php, 2, 256, max_depth=4, deposit_fn=fn, regen=True)
     hp_p, em_p, dr_p = run(depo)
     hp_r, em_r, dr_r = run(HpSpace())
     assert float(em_p) == float(em_r) and int(dr_p) == int(dr_r) == 0

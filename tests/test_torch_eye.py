@@ -1,7 +1,8 @@
-"""Eye pass: the port's staged-width wavefront (``_eye_pass_compact``) vs
-the JAX package's on ``full`` at 32 x 32 reference-camera rays, both with
-the Newton kernel contract at 8 restarts (JAX: the Pallas kernel in
-interpret mode).  The pass draws no random numbers.
+"""Eye pass: the port's staged-width wavefront (``_eye_pass_compact``) and
+one-slot wavefront (``eye_pass`` with no schedule) vs the JAX package's on
+``full`` at reference-camera rays, both with the Newton kernel contract at
+8 restarts (JAX: the Pallas kernel in interpret mode).  The pass draws no
+random numbers.
 
 The walk is held to JAX's one segment at a time
 (``raytrace3_tpu_torch.testing``): each of the port's segments runs on
@@ -68,6 +69,37 @@ def test_eye_pass_compact_matches_jax(name):
                                       np.asarray(getattr(hp_j, f)), err_msg=f)
 
 
+def test_eye_pass_slots_matches_jax():
+    """The one-slot wavefront (JAX's ``K == 1`` branch), held segment by
+    segment; the buffer then equals JAX's exactly, and autograd reaches the
+    atlas through the per-segment scatter into the hit-point weights."""
+    js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.12)
+    org, d = j_emit_rays(jscenes.reference_camera(24, 24))
+    cap = int(576 * 1.5)
+    with jax_walk_steps() as steps:
+        hp_j, st_j = jax.jit(lambda o, dd: jeye.eye_pass(
+            js, o, dd, cap, newton_fn=make_newton_pallas(interpret=True)))(org, d)
+        jax.block_until_ready(hp_j)
+    assert len(steps["eye"]) == 14
+    ps = port_scene(js)
+    ps.atlas.requires_grad_(True)
+    with pinned_segments(eye_steps=steps["eye"]) as report:
+        hp_p, st_p = eye.eye_pass(ps, torch.as_tensor(np.array(org)),
+                                  torch.as_tensor(np.array(d)), cap, newton_fn=make_newton())
+    print(f"slots: count {int(st_p['count'])}, {report}")
+    assert report.segments["eye"] == 14
+    assert report.lanes["self-hit flip"] <= MAX_FLIPS
+    assert int(st_j["count"]) > 300
+    for k in ("count", "dropped"):
+        assert int(st_p[k]) == int(st_j[k]), k
+    for f in ("pos", "n", "wgt", "pixel", "valid", "r2", "tao", "nphot"):
+        np.testing.assert_array_equal(getattr(hp_p, f).detach().numpy(),
+                                      np.asarray(getattr(hp_j, f)), err_msg=f)
+    hp_p.wgt.sum().backward()
+    g = ps.atlas.grad
+    assert torch.isfinite(g).all() and float(g.abs().max()) > 0
+
+
 def test_k_slot_path_is_not_ported():
     with pytest.raises(NotImplementedError):
-        eye.eye_pass(None, torch.zeros(4, 3), torch.zeros(4, 3), 8)
+        eye.eye_pass(None, torch.zeros(4, 3), torch.zeros(4, 3), 8, slots=2)

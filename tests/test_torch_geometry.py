@@ -64,7 +64,7 @@ def jax_full():
 def test_planes_match(rng, jax_full):
     org, d = _rays(rng)
     jp = jax_full.planes
-    pp = scenes.full(atlas_res=32).planes
+    pp = scenes.full(atlas_res=32, device="cpu").planes
     for f in ("p0", "normal", "tex_u_mod", "tex_v_mod"):
         np.testing.assert_array_equal(getattr(pp, f).numpy(), np.asarray(getattr(jp, f)))
     tj, hj = jplane.intersect_planes(jnp.asarray(org), jnp.asarray(d), jp)
@@ -81,7 +81,7 @@ def test_planes_match(rng, jax_full):
 def test_spheres_match(rng, jax_full):
     org, d = _rays(rng)
     js = jax_full.spheres
-    ps = scenes.full(atlas_res=32).spheres
+    ps = scenes.full(atlas_res=32, device="cpu").spheres
     for w, g in zip(jsphere.intersect_spheres(jnp.asarray(org), jnp.asarray(d), js),
                     sphere.intersect_spheres(_t(org), _t(d), ps)):
         if g.dtype == torch.bool:
@@ -150,7 +150,7 @@ def test_bezier_basis_and_patches(rng):
 
 def test_camera_rays_match():
     jc = jscenes.reference_camera(24, 16)
-    pc = scenes.reference_camera(24, 16)
+    pc = scenes.reference_camera(24, 16, device="cpu")
     for f in ("pos", "dir", "du", "dv"):
         _close(getattr(pc, f), getattr(jc, f), atol=1e-6)
     for w, g in zip(jcam.emit_rays(jc), camera.emit_rays(pc)):
@@ -161,7 +161,7 @@ def test_build_scene_equals_jax_array_for_array():
     cfg = RenderConfig(scene="full", atlas_res=32, bezier_compact_frac=0.09,
                        newton_iters=7)
     want = flatten_to_numpy(j_build_scene(cfg))
-    port = build_scene(cfg)
+    port = build_scene(cfg, device="cpu")
     got = flatten_to_numpy(port)
     assert sorted(got) == sorted(want)
     for k in want:

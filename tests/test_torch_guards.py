@@ -1,12 +1,15 @@
-"""Guards of the port's rules: no JAX, no TF32, no silent fallback.
+"""Guards of the port's rules: no JAX, no TF32, no silent fallback, the
+card by default.
 
 The package and ``chip_smoke.py`` must import without JAX (checked in a
 fresh interpreter); TF32 is off after import; the kernel wrappers take
-their plain twins only for CPU tensors and raise for other devices; and
+their plain twins only for CPU tensors and raise for other devices; the
+entry points default to the card and raise without one; and
 ``chip_smoke.py`` refuses to run, printing no result, without a GPU or
 outside the repository.
 """
 
+import inspect
 import shutil
 import subprocess
 import sys
@@ -16,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from raytrace3_tpu_torch.ops import cuda_build, deposit_kernel, newton_kernel
+from raytrace3_tpu_torch import scenes
+from raytrace3_tpu_torch.ops import cuda_build, deposit_kernel, lane_kernel, newton_kernel
+from raytrace3_tpu_torch.render.driver import build_scene
+from raytrace3_tpu_torch.utils.config import RenderConfig
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -88,6 +94,43 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         newton_kernel.solve(o, o, torch.zeros((2, 4, 4, 3), device="meta"))
     assert newton_kernel.KERNEL._fn is None
+
+
+def test_lane_wrappers_take_the_plain_twins_on_cpu_and_raise_elsewhere():
+    sk, ek, packed, dep = _tile_case(np.random.default_rng(2))
+    lo, hi = torch.tensor([0, 2, 3], dtype=torch.int32), torch.tensor([2, 3, 3], dtype=torch.int32)
+    wa, wb = sk.reshape(-1)[:3].contiguous(), ek.reshape(-1)[:3].contiguous()
+    wt = torch.tensor([0, 1, 2], dtype=torch.int32)
+    u = torch.ones((packed.shape[0], 3))
+    before = (lane_kernel.FORWARD.launches, lane_kernel.BACKWARD.launches)
+    fwd = lane_kernel.deposit_lane(lo, hi, wa, wb, packed, dep)
+    assert torch.equal(fwd, lane_kernel.deposit_lane_plain(lo, hi, wa, wb, packed, dep))
+    assert float(fwd[:, 0].sum()) > 0 and float(fwd[96 - 32:, 0].abs().sum()) == 0
+    run = torch.tensor([0, 3], dtype=torch.int32), torch.tensor([3, 3], dtype=torch.int32)
+    dep = torch.cat([dep, torch.zeros((16, 56))], 1)              # 2 chunks of 128
+    bwd = lane_kernel.deposit_lane_bwd(*run, wt, wa, wb, packed, u, dep, 32, 128)
+    assert bwd.shape == (3, 256) and float(bwd.sum()) > 0
+    assert (lane_kernel.FORWARD.launches, lane_kernel.BACKWARD.launches) == before
+    assert lane_kernel.FORWARD._fn is None and lane_kernel.BACKWARD._fn is None
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError):
+        lane_kernel.deposit_lane(*map(meta, (lo, hi, wa, wb, packed, dep)))
+    with pytest.raises(ValueError):
+        lane_kernel.deposit_lane_bwd(*map(meta, (*run, wt, wa, wb, packed, u, dep)), 32, 128)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """The default device is "cuda"; without a card the entry points raise
+    (checked with the card's availability mocked away), never run on the
+    CPU unasked."""
+    for fn in (build_scene, scenes.full, scenes.get_scene, scenes.reference_camera):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_scene(RenderConfig(scene="full", atlas_res=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenes.reference_camera(8, 8)
+    assert build_scene(RenderConfig(scene="full", atlas_res=8), device="cpu").device.type == "cpu"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the run without a GPU")

@@ -1,4 +1,5 @@
-"""Photon walk: one round of the port's ``photon_trace_regen`` vs the JAX
+"""Photon walks: one round of the port's ``photon_trace_regen``, and one
+static-walk round (``emit_photons`` + ``photon_trace``), vs the JAX
 package's on ``full`` (photon-pass compaction 0.05, the Newton kernel
 contract at 8 restarts on both sides), with JAX's own draws replayed into
 the port (derived with JAX's split structure, tests/torch_port_util.py).
@@ -18,14 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import jax_walk_steps, port_scene, regen_round_draws
+from torch_port_util import (jax_walk_steps, port_scene, regen_round_draws,
+                             static_round_draws)
 from raytrace3_tpu import scenes as jscenes
 from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
+from raytrace3_tpu.render import light as jlight
 from raytrace3_tpu.render import photon as jphoton
 
 from raytrace3_tpu_torch.core.sampling import ReplayDraws
 from raytrace3_tpu_torch.ops.newton_kernel import make_newton
-from raytrace3_tpu_torch.render import photon
+from raytrace3_tpu_torch.render import light, photon
 from raytrace3_tpu_torch.testing import MAX_FLIPS, pinned_segments
 
 N = 1024
@@ -95,3 +98,48 @@ def test_regen_state_init_matches_jax():
     for got, want in zip(photon.regen_state_init(2, 5), jphoton.regen_state_init(2, 5)):
         assert got.numpy().dtype == np.asarray(want).dtype
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_emit_photons_matches_jax():
+    """Two lights, JAX's uniforms replayed: origins and fluxes exactly,
+    directions to 1e-6 (sin and cos of another library)."""
+    lp, lc = (jnp.asarray(x, jnp.float32) for x in LIGHTS2)
+    key = jax.random.key(5)
+    want = jlight.emit_photons(jax.random.split(key)[0], lp, lc, 300)
+    draws = ReplayDraws(static_round_draws(key, 2, 300, 0))
+    got = light.emit_photons(draws, torch.tensor(LIGHTS2[0]), torch.tensor(LIGHTS2[1]), 300)
+    assert draws.remaining == 0
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-6)
+
+
+def test_static_round_matches_jax_with_replayed_draws():
+    """The static walk (photon.py:49-119), held segment by segment; the
+    round's deposits then equal JAX's exactly."""
+    js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.05)
+    key = jax.random.key(11)
+
+    def jround(k):
+        k_e, k_t = jax.random.split(k)
+        o, d, f = jlight.emit_photons(k_e, js.light_pos, js.light_color, N)
+        return jphoton.photon_trace(js, k_t, o, d, f, SEGS - 1,
+                                    newton_fn=make_newton_pallas(interpret=True))
+
+    with jax_walk_steps() as steps:
+        dep_j = jax.jit(jround)(key)
+        jax.block_until_ready(dep_j)
+    assert len(steps["static"]) == SEGS
+    ps = port_scene(js)
+    draws = ReplayDraws(static_round_draws(key, 1, N, SEGS))
+    with pinned_segments(static_steps=steps["static"]) as report:
+        o, d, f = light.emit_photons(draws, ps.light_pos, ps.light_color, N)
+        dep_p = photon.photon_trace(ps, draws, o, d, f, SEGS - 1, newton_fn=make_newton())
+    print(report)
+    assert draws.remaining == 0
+    assert report.segments["static"] == SEGS
+    assert report.lanes["self-hit flip"] <= MAX_FLIPS
+    for fld in ("pos", "n", "flux", "valid"):
+        np.testing.assert_array_equal(getattr(dep_p, fld).numpy(),
+                                      np.asarray(getattr(dep_j, fld)), err_msg=fld)
+    assert int(dep_p.valid.sum()) > 2 * N

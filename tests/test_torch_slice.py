@@ -75,7 +75,7 @@ def _jax_pass(key):
 
 def _port_pass(key, steps):
     cfg = RenderConfig(**SETTINGS)
-    scene = driver.build_scene(cfg)
+    scene = driver.build_scene(cfg, device="cpu")
     b = world_bounds_from_scene(scene, extra_points=[BASE])
     fn = driver.make_pass_fn(scene, cfg, BASE, LOOK,
                              deposit_fn=make_tile_deposit(**{k: b[k] for k in BOUNDS}),

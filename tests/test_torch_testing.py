@@ -33,7 +33,7 @@ SMALL = dict(scene="full", width=16, height=16, passes=1, rounds=1,
 
 def _pass_fn():
     cfg = RenderConfig(**SMALL)
-    scene = driver.build_scene(cfg)
+    scene = driver.build_scene(cfg, device="cpu")
     b = world_bounds_from_scene(scene, extra_points=[BASE])
     return driver.make_pass_fn(
         scene, cfg, BASE, LOOK, newton_fn=make_newton(10, 8),
@@ -58,7 +58,7 @@ def test_pinned_run_matches_its_own_recording():
 
 @pytest.fixture(scope="module")
 def walk_steps():
-    scene = full(atlas_res=16).replace(bezier_compact_frac=0.05)
+    scene = full(atlas_res=16, device="cpu").replace(bezier_compact_frac=0.05)
     with testing.recording_segments() as steps:
         photon.photon_trace_regen(scene, torch.Generator().manual_seed(2),
                                   scene.light_pos, scene.light_color, 256, None,
