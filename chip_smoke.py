@@ -5,8 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from ``raytrace3_tpu_torch/csrc/``
-and drives the port's two paths.  The render path is the bench
+It builds the port's six CUDA kernels from ``raytrace3_tpu_torch/csrc/``
+and drives the port's four paths: the render pass, the train step, the CLI
+and the stream deposit's pass.  The render path is the bench
 configuration of ``bench.py`` (scene ``full``, 512 x 512, 16 rounds x
 131072 photons, depth 13, regen walk, Bezier compaction 0.09 / 0.05, the
 staged eye schedule, the tile deposit at tile 256 with 1-D banding, Newton
@@ -18,9 +19,10 @@ deposit at tile 256 / chunk 512 / work cap 16384 with 2-D banding and
 merged z windows, Adam on an MSE loss).  Phases, each of which ends the run
 with a non-zero exit when it fails:
 
-  1. the card's name and power limit; build the four kernels, in parallel;
+  1. the card's name and power limit; build the six kernels, in parallel;
   2. the Newton kernel against its plain PyTorch twin on the teapot-bound
-     rays of one photon segment at bench shapes;
+     rays of one photon segment at bench shapes (and the time of the
+     default solver, ``solve_winner``, on the same rays);
   3. the tile deposit kernel against its plain twin on one bench round
      (14 x 131072 deposits against the 512^2 hit-point layout);
   4. a small pass (32 x 32, 2 x 1024 photons) on the card against the same
@@ -38,7 +40,19 @@ with a non-zero exit when it fails:
   9. the train path: ``build_scene`` + ``make_train_step`` at full width,
      one warm step and timed steps from half the true albedos toward a
      target rendered at the true ones, with the launch counters read
-     around them.
+     around them;
+ 10. the block deposit kernel (#5) against its plain twin at the
+     ``reference1024`` preset's shapes: the 1024^2 eye pass with the
+     preset's schedule and one regen round (14 x 131072 deposits) through
+     ``DepositBlock`` as ``cli.py`` builds it (tile 1024, work cap 65536);
+ 11. the CLI path: ``cli.main(["--preset", "reference1024", "--passes",
+     "3", ...])`` in process, with its metrics JSONL, checkpoint and PNG,
+     the launch counters read around it; then a 64^2 render on the card
+     resumed from a one-pass checkpoint against the same render run
+     straight;
+ 12. the stream deposit kernel (#6) against its plain twin and the coarse-z
+     ``DepositZTile`` against ``DepositTile`` on phase 3's bench round, and
+     one 512^2 pass through ``make_pass_fn`` with ``DepositStream``.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -48,9 +62,12 @@ script exits non-zero before printing either.  It imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -115,6 +132,18 @@ PAIR_OPS, TAKEN_OPS_FWD, TAKEN_OPS_BWD = 15, 4, 3
 #: iteration two patch evaluations (one with derivatives), the Cramer step,
 #: the clamps and the acceptance test.
 NEWTON_GATE_OPS, NEWTON_START_OPS, NEWTON_ITER_OPS = 120, 150, 543
+#: Phase 11: the CLI's passes at the reference1024 preset, and the card's
+#: resume check: a 64^2 render resumed from a one-pass checkpoint against
+#: the same render run straight.  The walks are deterministic on the card;
+#: only the pixel estimate's index_add_ sums with atomics, in another order
+#: each run, so the images agree to RESUME_L1_RTOL relative L1.
+CLI_PASSES = 3
+RESUME_ARGS = ["--scene", "full", "--res", "64", "--deposit", "pallas", "--pallas",
+               "--preview-every", "0"]
+RESUME_L1_RTOL = 1e-6
+#: Phase 12: the round-3 deposit sweep's stream configuration
+#: (scripts/perf_deposit_sweep.py:110-122, ``str1d_t128_ch1024``).
+STREAM = dict(tile=128, chunk=1024, work_cap=65536, bucket2d=False)
 
 
 def card_line() -> str:
@@ -153,7 +182,9 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, ops, nbytes) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def make_pass(settings: dict, device):
+def make_pass(settings: dict, device, deposit=None):
+    """(cfg, scene, pass function) of ``settings``; ``deposit(bounds)``
+    builds the deposit (default: the bench's tile deposit)."""
     from raytrace3_tpu_torch.ops.deposit_kernel import (make_tile_deposit,
                                                         world_bounds_from_scene)
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
@@ -163,13 +194,53 @@ def make_pass(settings: dict, device):
     cfg = RenderConfig(**settings)
     scene = build_scene(cfg, device)
     b = world_bounds_from_scene(scene, extra_points=[BASE])
-    fn = make_pass_fn(scene, cfg, BASE, LOOK,
-                      deposit_fn=make_tile_deposit(tile=TILE, **{k: b[k] for k in BOUNDS}),
+    xy = {k: b[k] for k in BOUNDS}
+    depo = deposit(xy) if deposit is not None else make_tile_deposit(tile=TILE, **xy)
+    fn = make_pass_fn(scene, cfg, BASE, LOOK, deposit_fn=depo,
                       newton_fn=make_newton(cfg.newton_iters, RESTARTS))
     return cfg, scene, fn
 
 
-SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu")
+SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu",
+           "deposit_block.cu", "deposit_stream.cu")
+
+
+def all_counters() -> dict:
+    """Every kernel's launch counter, by the name of its row."""
+    from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
+
+    return {"newton": newton_kernel.KERNEL, "deposit_tile": deposit_kernel.KERNEL,
+            "deposit_lane": lane_kernel.FORWARD, "deposit_lane_bwd": lane_kernel.BACKWARD,
+            "deposit_block": deposit_kernel.BLOCK_KERNEL,
+            "deposit_stream": lane_kernel.STREAM}
+
+
+def zero_counters() -> None:
+    for k in all_counters().values():
+        k.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: k.launches for name, k in all_counters().items()}
+
+
+def compare_deposit(got, want) -> tuple[int, float, float]:
+    """(count mismatches, max relative flux error, max |got - want|)."""
+    cnt_mismatch = int((got[:, 0] != want[:, 0]).sum())
+    dflux = (got[:, 1:4] - want[:, 1:4]).abs()
+    rel = float((dflux / want[:, 1:4].abs().clamp_min(1e-6)).max())
+    return cnt_mismatch, rel, float((got - want).abs().max())
+
+
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``, by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_build(card: str) -> None:
@@ -226,6 +297,17 @@ def phase_newton(card: str, device) -> dict:
           f"hits {int(hit_w.sum())}, hit mismatches {mismatch}, pid mismatches "
           f"{pid_mismatch}, max |dt, du, dv| on common hits {err:.3g}")
     print(f"[2] newton: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    # The solver the port takes without --pallas: not a kernel, timed for
+    # the record beside it.
+    from raytrace3_tpu_torch.geometry.bezier import solve_winner
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    winner_ms = cuda_ms(lambda: solve_winner(org, dir, ctrl, cfg.newton_iters), 3)
+    extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"[2] default solver (geometry.bezier.solve_winner, plain PyTorch, 4 x 4 starts) "
+          f"on the same rays: {winner_ms:.3f} ms, {extra_gb:.3f} GB above the inputs ({card})")
     if mismatch or pid_mismatch or not err <= NEWTON_ATOL or int(hit_w.sum()) == 0:
         raise SystemExit("phase 2 failed: the Newton kernel disagrees with its plain twin")
     R, B = org.shape[0], ctrl.shape[0]
@@ -242,12 +324,8 @@ def phase_newton(card: str, device) -> dict:
     return row
 
 
-def phase_deposit(card: str, device, deps) -> dict:
-    """Kernel vs plain on one bench round against the 512^2 layout."""
-    from raytrace3_tpu_torch.ops.deposit_kernel import (deposit_tile,
-                                                        deposit_tile_plain,
-                                                        make_tile_deposit,
-                                                        world_bounds_from_scene)
+def bench_hitpoints(device):
+    """(cfg, scene, hit points, eye stats) of the bench's 512^2 eye pass."""
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
     from raytrace3_tpu_torch.render.camera import emit_rays, look_at
     from raytrace3_tpu_torch.render.driver import build_scene
@@ -261,6 +339,17 @@ def phase_deposit(card: str, device, deps) -> dict:
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
                       cfg.init_r2, newton_fn=make_newton(cfg.newton_iters, RESTARTS),
                       compact_schedule=cfg.eye_compact_schedule)
+    return cfg, scene, hp, st
+
+
+def phase_deposit(card: str, device, deps) -> dict:
+    """Kernel vs plain on one bench round against the 512^2 layout."""
+    from raytrace3_tpu_torch.ops.deposit_kernel import (deposit_tile,
+                                                        deposit_tile_plain,
+                                                        make_tile_deposit,
+                                                        world_bounds_from_scene)
+
+    cfg, scene, hp, st = bench_hitpoints(device)
     b = world_bounds_from_scene(scene, extra_points=[BASE])
     dep_fn = make_tile_deposit(tile=TILE, **{k: b[k] for k in BOUNDS})
     prep = dep_fn.prepare(hp)
@@ -333,13 +422,11 @@ def phase_small(device) -> None:
 
 def phase_main(card: str, device) -> dict:
     """The main path at the bench configuration; returns launch counts."""
-    from raytrace3_tpu_torch.ops import deposit_kernel, newton_kernel
     from raytrace3_tpu_torch.render.eye import eye_stage_widths
 
     cfg, scene, fn = make_pass(BENCH, device)
     gen = torch.Generator(device=device).manual_seed(0)
-    newton_kernel.KERNEL.launches = 0
-    deposit_kernel.KERNEL.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     img, stats = fn(gen)
     torch.cuda.synchronize()
@@ -351,8 +438,7 @@ def phase_main(card: str, device) -> dict:
         emitted.append(stats["photons_emitted"])
     torch.cuda.synchronize()
     pass_s = (time.perf_counter() - t0) / TIMED_PASSES
-    launches = {"newton": newton_kernel.KERNEL.launches,
-                "deposit_tile": deposit_kernel.KERNEL.launches}
+    launches = read_counters()
 
     photons = float(torch.stack(emitted).mean())
     eye_rays = sum(s * w for s, w in eye_stage_widths(
@@ -367,7 +453,7 @@ def phase_main(card: str, device) -> dict:
     ok = (st["deposits_dropped"] == 0 and st["dropped"] == 0 and st["count"] > 0
           and tuple(img.shape) == (cfg.height, cfg.width, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-          and all(n > 0 for n in launches.values()))
+          and launches["newton"] > 0 and launches["deposit_tile"] > 0)
     if not ok:
         raise SystemExit("phase 5 failed: the main path's result or launches are wrong")
     return launches
@@ -542,7 +628,6 @@ def phase_train(card: str, device) -> dict:
     """The train path at full width; returns launch counts."""
     from raytrace3_tpu_torch.diff.train import (extract_params, make_render_fn,
                                                 make_train_step)
-    from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
     from raytrace3_tpu_torch.render.driver import build_scene
     from raytrace3_tpu_torch.utils.config import RenderConfig
@@ -558,11 +643,7 @@ def phase_train(card: str, device) -> dict:
     params = dict(p_true, diff=p_true["diff"] * 0.5)
     init_fn, step_fn = make_train_step(scene, cfg, newton_fn=newton)
     opt = init_fn(params)
-    counters = {"newton": newton_kernel.KERNEL, "deposit_tile": deposit_kernel.KERNEL,
-                "deposit_lane": lane_kernel.FORWARD,
-                "deposit_lane_bwd": lane_kernel.BACKWARD}
-    for k in counters.values():
-        k.launches = 0
+    zero_counters()
     losses, stats = [], []
     t0 = time.perf_counter()
     _, _, loss, st = step_fn(params, opt, gen(), target)
@@ -579,7 +660,7 @@ def phase_train(card: str, device) -> dict:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_counters()
     losses = [float(x) for x in losses]
     stats = [{k: int(v) for k, v in s.items()} for s in stats]
     grads = {k: v.grad for k, v in params.items()}
@@ -600,6 +681,212 @@ def phase_train(card: str, device) -> dict:
     return launches
 
 
+def preset_round(device) -> dict:
+    """The reference1024 preset's inputs to its deposit: the 1024^2 eye
+    pass with its schedule and one regen round, on the card, and the
+    deposit ``cli.py`` builds for it."""
+    from raytrace3_tpu_torch import cli
+    from raytrace3_tpu_torch.render.camera import emit_rays, look_at
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.render.eye import eye_pass
+    from raytrace3_tpu_torch.render.photon import photon_trace_regen
+    from raytrace3_tpu_torch.utils.config import get_config
+
+    cfg = get_config("reference1024")
+    scene = build_scene(cfg, device)
+    newton, depo = cli.make_backends(cfg, scene)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
+    hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
+                      cfg.init_r2, newton_fn=newton, compact_schedule=cfg.eye_compact_schedule)
+    photon_scene = scene.replace(bezier_compact_frac=cfg.bezier_compact_frac_photon)
+    gen = torch.Generator(device=device).manual_seed(3)
+    deps, _, _ = photon_trace_regen(photon_scene, gen, scene.light_pos, scene.light_color,
+                                    cfg.photons_per_round, None, cfg.max_depth,
+                                    newton_fn=newton)
+    return cfg, depo, hp, st, deps
+
+
+def phase_block(card: str, device) -> dict:
+    """Kernel #5 vs its plain twin on one reference1024 round."""
+    from raytrace3_tpu_torch.ops.deposit_kernel import (DepositBlock, deposit_block,
+                                                        deposit_block_plain)
+
+    cfg, depo, hp, st, deps = preset_round(device)
+    if not (isinstance(depo, DepositBlock) and depo.tile == 1024 and depo.work_cap == 65536):
+        raise SystemExit(f"phase 10 failed: the CLI built {depo!r} for reference1024")
+    prep = depo.prepare(hp)
+    r2_pad, _ = depo.pack_state(hp, prep)
+    packed = prep.packed.clone()
+    packed[:, 6] = r2_pad
+    n_tiles = packed.shape[0] // depo.tile
+    dkeys, dep_packed, Dp = depo._dep_sorted(deps, depo.wchunk)
+    wt, blk, wcmp, overflow, total = depo.work_list(prep, dkeys, n_tiles, Dp)
+    args = (wt, blk, wcmp, packed, dep_packed, depo.tile, depo.wchunk)
+    got = deposit_block(*args)
+    want, plain_ms = timed_once(lambda: deposit_block_plain(*args))
+    cnt_mismatch, rel, err = compare_deposit(got, want)
+    computing = int(wcmp.sum())
+    pairs = computing * depo.wchunk * depo.tile
+    taken = float(want[:, 0].sum())
+    ms = cuda_ms(lambda: deposit_block(*args))
+    print(f"[10] block deposit at reference1024: {int(deps.valid.sum())} valid of "
+          f"{deps.pos.shape[0]} deposits, {int(st['count'])} hit points (eye dropped "
+          f"{int(st['dropped'])}) in {n_tiles} tiles of {depo.tile}; {int(total)} work "
+          f"items needed of W = {depo.work_cap} ({computing} computing), overflow "
+          f"{int(overflow)}; {pairs / 1e9:.3f} G pair tests, pairs taken {int(taken)}")
+    print(f"[10] block deposit: count mismatches {cnt_mismatch}, max relative flux error "
+          f"{rel:.3g}, max |d out| {err:.3g}")
+    print(f"[10] block deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one call) "
+          f"({card})")
+    if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0 or int(overflow) != 0
+            or int(st["dropped"]) != 0):
+        raise SystemExit("phase 10 failed: the block deposit kernel disagrees with its "
+                         "plain twin, or the preset's round overflows")
+    c_pad, W = packed.shape[0], wt.shape[0]
+    nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 3 * W * 4
+    row = kernel_row("deposit_block", "deposit_block.cu",
+                     "raytrace3_tpu/ops/deposit_pallas.py:88", err, ms, plain_ms,
+                     PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    print(f"[10] block deposit: bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+          f"kernel at {ms / row['bound_ms']:.1f}x it ({card})")
+    return row
+
+
+def png_size(path) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def phase_cli(card: str) -> dict:
+    """The CLI at the reference1024 preset, then the card's resume check;
+    returns the CLI run's launch counts."""
+    from raytrace3_tpu_torch import cli
+    from raytrace3_tpu_torch.utils import checkpoint
+    from raytrace3_tpu_torch.utils.config import get_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, jl, ck = (os.path.join(tmp, n) for n in ("r.png", "m.jsonl", "ck.npz"))
+        zero_counters()
+        t0 = time.perf_counter()
+        rc = cli.main(["--preset", "reference1024", "--passes", str(CLI_PASSES),
+                       "--preview-every", "0", "--metrics-jsonl", jl, "--checkpoint", ck,
+                       "--checkpoint-every", "1", "--out", out])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counters()
+        recs = [json.loads(line) for line in open(jl)]
+        size = png_size(out)
+        saved = checkpoint.load(ck)
+        for r in recs:
+            print(f"[11] cli reference1024 pass {r['pass']}: {r['pass_seconds']:.3f} s, "
+                  f"{r['photons_per_s']:.0f} photons/s, {r['mrays_per_s']:.2f} Mrays/s, "
+                  f"hit points {r['hitpoints']}, dropped {r['dropped']}, deposits dropped "
+                  f"{r['deposits_dropped']}, mean r2 {r['mean_r2']:.4f} ({card})")
+        print(f"[11] cli: rc {rc}, {wall_s:.1f} s in all, PNG {size[0]}x{size[1]}, "
+              f"checkpoint at pass {saved[1]}; launches {launches} ({card})")
+        preset = get_config("reference1024")
+        ok = (rc == 0 and len(recs) == CLI_PASSES and size == (preset.width, preset.height)
+              and saved[1] == CLI_PASSES and np.isfinite(saved[0]).all()
+              and float(saved[0].mean()) > 0
+              and all(r["dropped"] == 0 and r["deposits_dropped"] == 0 and r["hitpoints"] > 0
+                      for r in recs)
+              and launches["newton"] > 0 and launches["deposit_block"] > 0)
+        if not ok:
+            raise SystemExit("phase 11 failed: the CLI's reference1024 render is wrong")
+
+        straight, part = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+        run = lambda passes, ck_path, every: cli.main(
+            RESUME_ARGS + ["--passes", str(passes), "--checkpoint", ck_path,
+                           "--checkpoint-every", str(every),
+                           "--out", os.path.join(tmp, "s.png")])
+        rcs = [run(3, straight, 0), run(1, part, 1), run(3, part, 1)]
+        a, b = checkpoint.load(straight), checkpoint.load(part)
+        l1 = float(np.abs(a[0] - b[0]).sum() / np.abs(a[0]).sum())
+        print(f"[11] resume on the card, 64^2: 3 passes straight vs 1 + resume to 3: "
+              f"rcs {rcs}, passes {a[1]} / {b[1]}, relative L1 {l1:.3g}")
+        if rcs != [0, 0, 0] or not a[1] == b[1] == 3 or not l1 <= RESUME_L1_RTOL:
+            raise SystemExit("phase 11 failed: the resumed render differs from the straight one")
+    return launches
+
+
+def phase_stream(card: str, device, deps) -> tuple[dict, dict]:
+    """Kernel #6 vs its plain twin and DepositZTile vs DepositTile on the
+    bench round, then one 512^2 pass with DepositStream; returns the
+    kernel's row and the pass's launch counts."""
+    from raytrace3_tpu_torch.ops.deposit_kernel import (DepositZTile,
+                                                        world_bounds_from_scene)
+    from raytrace3_tpu_torch.ops.lane_kernel import (DepositStream, deposit_stream,
+                                                     deposit_stream_plain, stream_mask)
+
+    _, scene, hp, _ = bench_hitpoints(device)
+    b = world_bounds_from_scene(scene, extra_points=[BASE])
+    xy = {k: b[k] for k in BOUNDS}
+    depo = DepositStream(**STREAM, **xy)
+    prep = depo.prepare(hp)
+    r2_pad, _ = depo.pack_state(hp, prep)
+    packed = prep.packed.clone()
+    packed[:, 6] = r2_pad
+    n_tiles = packed.shape[0] // depo.tile
+    dkeys, dep_packed, Dp = depo._dep_sorted(deps, depo.chunk)
+    sk, ek = depo._window_lanes(prep, dkeys, n_tiles)
+    itf, itab, starts, ends, overflow = depo.stream_items(sk, ek, n_tiles, Dp)
+    args = (itf, itab, starts, ends, packed, dep_packed)
+    got = deposit_stream(*args)
+    want, plain_ms = timed_once(lambda: deposit_stream_plain(*args))
+    cnt_mismatch, rel, err = compare_deposit(got, want)
+    n_items = int(ends.max())
+    wa, wb = stream_mask(itf, itab)
+    pairs = int((wb - wa)[:n_items].sum()) * depo.tile
+    taken = float(want[:, 0].sum())
+    ms = cuda_ms(lambda: deposit_stream(*args))
+    print(f"[12] stream deposit on the bench round: {n_tiles} tiles of {depo.tile}, "
+          f"{n_items} items of W = {depo.work_cap}, overflow {int(overflow)}; "
+          f"{pairs / 1e9:.3f} G pair tests, pairs taken {int(taken)}")
+    print(f"[12] stream deposit: count mismatches {cnt_mismatch}, max relative flux error "
+          f"{rel:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one call) ({card})")
+    if cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0 or int(overflow) != 0:
+        raise SystemExit("phase 12 failed: the stream deposit kernel disagrees with its "
+                         "plain twin")
+    c_pad, W = packed.shape[0], itf.shape[0]
+    nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * W * 4 + 2 * n_tiles * 4
+    row = kernel_row("deposit_stream", "deposit_stream.cu",
+                     "raytrace3_tpu/ops/deposit_pallas.py:1106", err, ms, plain_ms,
+                     PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    print(f"[12] stream deposit: bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+          f"kernel at {ms / row['bound_ms']:.1f}x it ({card})")
+
+    # The coarse-z windows over the tile kernel take the tile deposit's pairs.
+    from raytrace3_tpu_torch.ops.deposit_kernel import make_tile_deposit
+
+    z_cnt, _, z_ovf = DepositZTile(**xy)(hp, deps)
+    t_cnt, _, _ = make_tile_deposit(tile=TILE, **xy)(hp, deps)
+    z_mismatch = int((z_cnt != t_cnt)[hp.valid].sum())
+    print(f"[12] DepositZTile vs DepositTile on the bench round: count mismatches "
+          f"{z_mismatch} of {int(hp.valid.sum())} hit points, overflow {int(z_ovf)}")
+    if z_mismatch or int(z_ovf) != 0 or float(t_cnt.sum()) == 0:
+        raise SystemExit("phase 12 failed: DepositZTile disagrees with DepositTile")
+
+    _, _, fn = make_pass(BENCH, device, deposit=lambda xy_: DepositStream(**STREAM, **xy_))
+    zero_counters()
+    t0 = time.perf_counter()
+    img, stats = fn(torch.Generator(device=device).manual_seed(4))
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = read_counters()
+    st = {k: float(v) for k, v in stats.items()}
+    print(f"[12] one 512^2 pass with DepositStream: {pass_s:.3f} s, stats {st}, "
+          f"launches {launches} ({card})")
+    if (st["deposits_dropped"] != 0 or st["dropped"] != 0 or launches["deposit_stream"] == 0
+            or not bool(torch.isfinite(img).all())):
+        raise SystemExit("phase 12 failed: the stream deposit's pass is wrong")
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -615,7 +902,6 @@ def main() -> int:
     newton = phase_newton(card, device)
     deps = newton.pop("_round")
     deposit = phase_deposit(card, device, deps)
-    del deps
     phase_small(device)
     render = phase_main(card, device)
     r = train_round(device)
@@ -624,17 +910,24 @@ def main() -> int:
     del r
     phase_small_train(device)
     train = phase_train(card, device)
-    # Each kernel's launches on the path(s) it runs on: the render path
-    # (phase 5) and the train path (phase 9), each counted from 0.
-    for row in (newton, deposit, lane, lane_bwd):
+    block = phase_block(card, device)
+    cli_launches = phase_cli(card)
+    stream, stream_launches = phase_stream(card, device, deps)
+    # Each kernel's launches on each path, each path counted from 0: the
+    # render pass (phase 5), the train step (phase 9), the CLI at
+    # reference1024 (phase 11) and the stream deposit's pass (phase 12).
+    paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches}
+    rows = (newton, deposit, lane, lane_bwd, block, stream)
+    for row in rows:
         name = row["name"]
-        row["launches_by_path"] = {"render": render.get(name, 0), "train": train[name]}
-        row["launches"] = render.get(name, 0) + train[name]
+        row["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] == 0:
+            raise SystemExit(f"kernel {name} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in (newton, deposit, lane, lane_bwd)]}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,7 +50,7 @@ def _record(cls, d: dict, prefix: str, device):
 
 def scene_from_numpy(d: dict, *, device="cpu", bezier_uv_quirk: bool = True,
                      bezier_compact_frac: float = 1.0,
-                     newton_iters: int = 10) -> Scene:
+                     newton_iters: int = 10, newton_restarts: int = 4) -> Scene:
     """A port ``Scene`` from a flattened scene; the static fields are given."""
     t = lambda k: torch.as_tensor(np.array(d[k]), device=device)
     return Scene(
@@ -63,7 +63,7 @@ def scene_from_numpy(d: dict, *, device="cpu", bezier_uv_quirk: bool = True,
         light_pos=t("light_pos"), light_color=t("light_color"),
         bezier_uv_quirk=bezier_uv_quirk,
         bezier_compact_frac=bezier_compact_frac,
-        newton_iters=newton_iters,
+        newton_iters=newton_iters, newton_restarts=newton_restarts,
     )
 
 

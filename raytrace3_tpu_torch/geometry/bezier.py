@@ -1,12 +1,15 @@
 """Cubic Bezier patches: Bernstein evaluation and the ray-object hit.
 
-Port of ``raytrace3_tpu/geometry/bezier.py`` for the winner contract.  The
-Newton solve itself is ``ops/newton_kernel.solve`` (the CUDA kernel, or its
-plain twin on the CPU) and runs without autograd; :func:`winner_root` wraps
-any such solver so that gradients reach the rays and the control points by
-the implicit function theorem at the root, as the JAX package's
-``winner_root`` does.  ``load_bpt`` and ``teapot_transform`` are host-side
-numpy, copied.
+Port of ``raytrace3_tpu/geometry/bezier.py``.  Two winner-contract solvers
+find the nearest root per ray: :func:`solve_winner`, the JAX package's
+default (plain PyTorch Newton over a ``restarts x restarts`` stratified
+start grid with patch pruning, ``newton_patch_solve``), and
+``ops/newton_kernel.solve`` (the CUDA kernel at 8 restarts, the ``--pallas``
+path), passed in as ``newton_fn``.  Either runs without autograd;
+:func:`winner_root` wraps it so that gradients reach the rays and the
+control points by the implicit function theorem at the root, as the JAX
+package's ``winner_root`` does.  ``load_bpt`` and ``teapot_transform`` are
+host-side numpy, copied.
 """
 
 from __future__ import annotations
@@ -18,14 +21,19 @@ import numpy as np
 import torch
 
 from ..core.types import Record
-from ..core.vecmath import MAX_DIST, cross, normalize
-from ..ops import newton_kernel
+from ..core.vecmath import M_EPS, MAX_DIST, cross, normalize
 from ..ops.compact import compact_indices
 from ..ops.solve3 import solve3_columns
 from .aabb import aabb_from_points, slab_test
 
 #: Reference Newton iteration budget (Bezier.h:6 ``MAX_ITER 10``).
 DEFAULT_NEWTON_ITERS = 10
+#: Side of :func:`solve_winner`'s stratified restart grid: 4 x 4 starts in
+#: place of the reference's 50 random restarts (Bezier.h:115).
+DEFAULT_RESTART_GRID = 4
+#: :func:`solve_winner` works on at most this many (ray, patch, start)
+#: lanes at a time; rays are independent, so the chunking changes nothing.
+MAX_SOLVE_LANES = 1 << 22
 
 
 @dataclass
@@ -75,6 +83,104 @@ def patch_tangents(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     return su, sv
 
 
+def restart_grid(g: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """Stratified (u0, v0) cell centres, (g * g, 2), ``meshgrid(ij)`` order."""
+    c = (torch.arange(g, dtype=dtype, device=device) + 0.5) / g
+    uu, vv = torch.meshgrid(c, c, indexing="ij")
+    return torch.stack([uu.reshape(-1), vv.reshape(-1)], -1)
+
+
+def _grid_derivs(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """(S, Su, Sv) of patch b at (R, B, G) parameters, ctrl (B, 4, 4, 3):
+    the v basis contracted once, then the u basis (JAX ``patch_derivs``)."""
+    bu, bv = bernstein(u), bernstein(v)
+    gv = torch.einsum("rbgi,bikc->rbgkc", bv, ctrl)
+    hv = torch.einsum("rbgi,bikc->rbgkc", dbernstein(v), ctrl)
+    s = torch.einsum("rbgk,rbgkc->rbgc", bu, gv)
+    su = torch.einsum("rbgk,rbgkc->rbgc", dbernstein(u), gv)
+    sv = torch.einsum("rbgk,rbgkc->rbgc", bu, hv)
+    return s, su, sv
+
+
+def _grid_point(ctrl: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    gv = torch.einsum("rbgi,bikc->rbgkc", bernstein(v), ctrl)
+    return torch.einsum("rbgk,rbgkc->rbgc", bernstein(u), gv)
+
+
+def newton_patch_solve(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
+                       iters: int = DEFAULT_NEWTON_ITERS,
+                       restarts: int = DEFAULT_RESTART_GRID):
+    """Batched Newton root-find of ``org + t dir = S(u, v)`` (Bezier.h:112-159).
+
+    Every (ray, patch) pair starts from the ``restarts x restarts`` grid
+    with t0 the start point projected onto the ray, takes ``iters`` clamped
+    Cramer steps, and keeps the nearest root accepted after any step
+    (residual^2 < ``residual2_eps``, u, v in [0, 1] (+ slack), t > M_EPS).
+    Returns (t, u, v, hit), each (R, B); t = MAX_DIST where nothing was
+    accepted.
+    """
+    R, B = org.shape[0], ctrl.shape[0]
+    starts = restart_grid(restarts, org.dtype, org.device)      # (G, 2)
+    G = starts.shape[0]
+    o = org[:, None, None, :]
+    d = dir[:, None, None, :]
+    u = starts[:, 0].expand(R, B, G)
+    v = starts[:, 1].expand(R, B, G)
+    s0 = _grid_point(ctrl, u, v)
+    t = ((s0 - o) * d).sum(-1) / (d * d).sum(-1)
+    best_t = torch.full((R, B, G), MAX_DIST, dtype=org.dtype, device=org.device)
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    for _ in range(iters):
+        s, su, sv = _grid_derivs(ctrl, u, v)
+        r = (o + t[..., None] * d) - s
+        dt, du, dv, ok = solve3_columns(d.expand_as(r), -su, -sv, -r)
+        # Clamped steps and iterates: diverging starts stay finite.
+        dt = torch.clamp(dt, -1e4, 1e4)
+        du = torch.clamp(du, -8.0, 8.0)
+        dv = torch.clamp(dv, -8.0, 8.0)
+        t = torch.clamp(t + torch.where(ok, dt, 0.0), -1e4, 1e4)
+        u = torch.clamp(u + torch.where(ok, du, 0.0), -8.0, 8.0)
+        v = torch.clamp(v + torch.where(ok, dv, 0.0), -8.0, 8.0)
+        res2 = (((o + t[..., None] * d) - _grid_point(ctrl, u, v)) ** 2).sum(-1)
+        accept = ((res2 < M_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+                  & (v <= 1.0) & (t > M_EPS) & (t < best_t))
+        best_t = torch.where(accept, t, best_t)
+        best_u = torch.where(accept, u, best_u)
+        best_v = torch.where(accept, v, best_v)
+    gi = torch.argmin(best_t, -1, keepdim=True)                  # first minimum
+    take = lambda a: torch.gather(a, -1, gi)[..., 0]
+    t_rb = take(best_t)
+    return t_rb, take(best_u), take(best_v), t_rb < MAX_DIST
+
+
+def solve_winner(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
+                 iters: int = DEFAULT_NEWTON_ITERS,
+                 restarts: int = DEFAULT_RESTART_GRID):
+    """Winner contract ``(t, u, v, patch_id, hit)``, each (R,): the nearest
+    root over all patches of :func:`newton_patch_solve`, with roots on
+    patches whose box the ray misses dropped (JAX's ``patch_prune``, always
+    on).  Plain PyTorch on any device; rays go through in chunks of at most
+    ``MAX_SOLVE_LANES`` (ray, patch, start) lanes."""
+    R, B = org.shape[0], ctrl.shape[0]
+    step = max(1, MAX_SOLVE_LANES // (B * restarts * restarts))
+    pmin, pmax = aabb_from_points(ctrl.reshape(B, 16, 3))
+    parts = []
+    for r0 in range(0, R, step):
+        o, d = org[r0:r0 + step], dir[r0:r0 + step]
+        t, u, v, hit = newton_patch_solve(o, d, ctrl, iters, restarts)
+        hit = hit & slab_test(o[:, None, :], d[:, None, :], pmin[None], pmax[None])
+        t = torch.where(hit, t, MAX_DIST)
+        bi = torch.argmin(t, -1, keepdim=True)
+        t_b = torch.gather(t, 1, bi)[:, 0]
+        parts.append((t_b, torch.gather(u, 1, bi)[:, 0], torch.gather(v, 1, bi)[:, 0],
+                      bi[:, 0].to(torch.int32), t_b < MAX_DIST))
+    if not parts:
+        z = org.new_zeros((0,))
+        return z, z, z, z.to(torch.int32), z.to(torch.bool)
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 class _WinnerRoot(torch.autograd.Function):
     """Forward: the solver on detached inputs.  Backward: the implicit
     function theorem at the root as returned, for F(t, u, v; org, dir,
@@ -121,8 +227,9 @@ def winner_root(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor, solver
 
 
 def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
-                     iters: int = DEFAULT_NEWTON_ITERS, newton_fn=None,
-                     compact_frac: float = 1.0):
+                     iters: int = DEFAULT_NEWTON_ITERS,
+                     restarts: int = DEFAULT_RESTART_GRID,
+                     newton_fn=None, compact_frac: float = 1.0):
     """Nearest ray-object hit over all patches (Bezier.h:240-282).
 
     Object-AABB gate, the winner-contract Newton solve, and the winner's
@@ -132,9 +239,10 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     beyond that capacity count as misses.
 
     ``newton_fn``: a winner-contract solver ``(org, dir, ctrl) ->
-    (t, u, v, patch_id, hit)``; defaults to ``newton_kernel.solve`` at
-    ``iters`` iterations and its default restarts.  Either way the solve
-    goes through :func:`winner_root`, so gradients flow by the IFT.
+    (t, u, v, patch_id, hit)``, e.g. ``newton_kernel.make_newton()``;
+    defaults to :func:`solve_winner` at ``iters`` and ``restarts``, as in
+    the JAX package.  Either way the solve goes
+    through :func:`winner_root`, so gradients flow by the IFT.
 
     Returns (t, hit, u, v, n): t (R,), hit (R,), u/v (R,), n (R, 3).
     """
@@ -143,7 +251,7 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     pmin, pmax = aabb_from_points(ctrl.reshape(obj.num_patches, 16, 3))
     obj_gate = slab_test(org, dir, pmin.amin(0), pmax.amax(0))
     solver = newton_fn if newton_fn is not None else partial(
-        newton_kernel.solve, iters=iters)
+        solve_winner, iters=iters, restarts=restarts)
 
     def winner_normal(d, u, v, pid):
         su, sv = patch_tangents(ctrl[pid.long()], u, v)

@@ -37,12 +37,12 @@ class Scene(Record):
     #: Fraction of rays gathered through the object-AABB compaction before
     #: the Newton solve (1.0 = dense).
     bezier_compact_frac: float = 1.0
-    #: Newton iterations of the default solver.  (The JAX scene's
-    #: ``newton_restarts`` is the side of its jnp solver's restart grid; the
-    #: port has only the kernel contract, whose restart count is the
-    #: solver's own, ``newton_kernel.DEFAULT_RESTARTS`` unless a solver is
-    #: passed.)
+    #: The default solver's budget (``geometry.bezier.solve_winner``):
+    #: Newton iterations and the side of its stratified restart grid
+    #: (reference: 10 iterations x 50 random restarts, Bezier.h:6, 115).
+    #: A solver passed as ``newton_fn`` carries its own.
     newton_iters: int = 10
+    newton_restarts: int = 4
 
     @property
     def n_planes(self) -> int:
@@ -77,7 +77,8 @@ def intersect_scene(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
     if scene.has_bezier:
         tb, hb, ub, vb, nb = intersect_bezier(
             org, dir, scene.bezier, iters=scene.newton_iters,
-            newton_fn=newton_fn, compact_frac=scene.bezier_compact_frac)
+            restarts=scene.newton_restarts, newton_fn=newton_fn,
+            compact_frac=scene.bezier_compact_frac)
         parts.append(torch.where(hb, tb, MAX_DIST)[:, None])
     t_all = torch.cat(parts, 1)                                # (R, N)
 

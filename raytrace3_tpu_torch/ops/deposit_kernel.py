@@ -1,9 +1,20 @@
-"""Banded photon deposit: the host side, the CUDA tile kernel and its twin.
+"""Banded photon deposit: the host sides, the CUDA tile and block kernels
+and their twins.
 
 Port of ``raytrace3_tpu/ops/deposit_pallas.py``'s ``PallasDepositTile``
 host side, with 1-D banding (the bench's deposit, ``bucket2d=False``) or
 2-D banding (``bucket2d=True``, which ``ops/lane_kernel.DepositLane``
-builds on):
+builds on), and of the two backends built on the same layout:
+
+  * ``DepositBlock`` (``PallasDeposit``, the CLI's ``--deposit pallas``):
+    the windows widened to whole ``wchunk``-aligned deposit blocks, made
+    disjoint at block granularity and flattened into a work list of at most
+    ``work_cap`` (tile, block) items; ``deposit_block`` (kernel #5,
+    ``csrc/deposit_block.cu``) sums each tile's items with no lane mask;
+  * ``DepositZTile`` (``PallasDepositZTile``): coarse z buckets inside each
+    x band, K = 6 windows per tile, over ``deposit_tile``.
+
+The tile layout:
 
   * key = bucket id * y_stride + quantized y, with bucket width 2r along
     x (1-D) or along x and z (2-D, bucket id = kx * n_bz + kz) and y
@@ -16,7 +27,7 @@ builds on):
     cascade;
   * ``deposit_tile(sk, ek, packed, dep_packed)`` walks those intervals:
     ``csrc/deposit_tile.cu`` for CUDA tensors, :func:`deposit_tile_plain`
-    for CPU tensors, nothing else.
+    for CPU tensors, nothing else (and likewise ``deposit_block``).
 
 Sorts are stable (``torch.sort(stable=True)``); the JAX side's sort leaves
 the order of equal keys open, which moves only the flux summation order.
@@ -51,6 +62,13 @@ YQ = 8.0
 KERNEL = CudaKernel("deposit_tile.cu", "rt3_deposit_tile", [
     ctypes.c_void_p, ctypes.c_void_p,                    # sk, ek
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # n_tiles, K, tile
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
+    ctypes.c_void_p,                                     # out
+])
+BLOCK_KERNEL = CudaKernel("deposit_block.cu", "rt3_deposit_block", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # wt, blk, wcmp
+    ctypes.c_int, ctypes.c_int,                          # W, wchunk
+    ctypes.c_int, ctypes.c_int,                          # n_tiles, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
     ctypes.c_void_p,                                     # out
 ])
@@ -159,6 +177,72 @@ def deposit_tile(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
     raise ValueError(f"no deposit kernel for device {packed.device}")
 
 
+def deposit_block_plain(wt: torch.Tensor, blk: torch.Tensor, wcmp: torch.Tensor,
+                        packed: torch.Tensor, dep_packed: torch.Tensor, tile: int,
+                        wchunk: int, pairs_per_step: int = 1 << 22) -> torch.Tensor:
+    """Kernel #5's contract in plain PyTorch: count (col 0) and raw RGB flux
+    (cols 1:4) per hit slot of tile ``wt[s]`` over the whole deposit block
+    ``blk[s]`` (lanes [blk wchunk, (blk + 1) wchunk)) of every item with
+    ``wcmp[s] != 0``; tiles no item names read 0."""
+    on = wcmp != 0
+    lo = blk.long()[on] * wchunk
+    hi = torch.clamp_max(lo + wchunk, dep_packed.shape[1])
+    return intervals_plain(wt.long()[on], lo, hi, packed, dep_packed,
+                           packed.shape[0] // tile, pairs_per_step)
+
+
+def _deposit_block_cuda(wt, blk, wcmp, packed, dep_packed, tile, wchunk):
+    dev = packed.device
+    W = wt.shape[0]
+    c_pad = packed.shape[0]
+    for name, x in (("wt", wt), ("blk", blk), ("wcmp", wcmp)):
+        check(name, x, torch.int32, (W,), dev)
+    check("packed", packed, torch.float32, (c_pad, 8), dev)
+    check("dep_packed", dep_packed, torch.float32, (16, None), dev)
+    if not 1 <= tile <= 1024 or c_pad % tile:
+        raise ValueError(f"c_pad {c_pad} is not a whole number of tiles of "
+                         f"{tile} (1..1024) slots")
+    if wchunk < 1 or dep_packed.shape[1] % wchunk:
+        raise ValueError(f"Dp {dep_packed.shape[1]} is not whole blocks of {wchunk} lanes")
+    out = torch.empty((c_pad, 8), dtype=torch.float32, device=dev)
+    BLOCK_KERNEL.launch(dev, ptr(wt), ptr(blk), ptr(wcmp), W, wchunk, c_pad // tile,
+                        tile, ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+    return out
+
+
+def deposit_block(wt: torch.Tensor, blk: torch.Tensor, wcmp: torch.Tensor,
+                  packed: torch.Tensor, dep_packed: torch.Tensor, tile: int,
+                  wchunk: int) -> torch.Tensor:
+    """Count (col 0) and raw RGB flux (cols 1:4) per hit slot, (c_pad, 8).
+
+    ``wt``, ``blk``, ``wcmp``: (W,) int32 work items sorted by tile: the
+    item's tile, its deposit block of ``wchunk`` lanes and whether it
+    computes; ``packed``: (c_pad, 8) hit slots in tiles of ``tile``;
+    ``dep_packed``: (16, Dp) sorted deposits, Dp a multiple of ``wchunk``.
+    A tile that no item names reads 0.  CUDA tensors launch kernel #5 (or
+    raise); CPU tensors take :func:`deposit_block_plain`.
+    """
+    if packed.is_cuda:
+        return _deposit_block_cuda(wt, blk, wcmp, packed, dep_packed, tile, wchunk)
+    if packed.device.type == "cpu":
+        return deposit_block_plain(wt, blk, wcmp, packed, dep_packed, tile, wchunk)
+    raise ValueError(f"no block deposit kernel for device {packed.device}")
+
+
+def _cascade(s: torch.Tensor, e: torch.Tensor):
+    """(n_tiles, K) intervals made disjoint: each start moves past the
+    previous window's end (windows are in key order)."""
+    prev_e = torch.zeros_like(s[:, 0])
+    s_cols, e_cols = [], []
+    for k in range(s.shape[1]):
+        s_k = torch.maximum(s[:, k], prev_e)
+        e_k = torch.maximum(e[:, k], s_k)
+        s_cols.append(s_k)
+        e_cols.append(e_k)
+        prev_e = e_k
+    return torch.stack(s_cols, 1), torch.stack(e_cols, 1)
+
+
 @dataclass
 class HpLayout(Record):
     """Round-invariant hit-point side of the banded deposit (one per pass)."""
@@ -234,9 +318,11 @@ class DepositTile:
         t = self.tile
         return ((C + t - 1) // t) * t + (self.n_buckets + 1) * t
 
-    def _build_windows(self, kb, ylo_q, yhi_q):
+    def _build_windows(self, packed, tv, kb, ylo_q, yhi_q):
         """Per-tile (lo_keys, hi_keys), (n_tiles, K) each: the windows
-        around the tile's own bucket, over the tile's y range."""
+        around the tile's own bucket ``kb``, over the tile's y range.
+        ``packed`` (c_pad, 8) and ``tv`` (n_tiles, tile), the slots' valid
+        mask, serve layouts whose windows depend on the tile's points."""
         lo = [(kb + o) * self.y_stride + ylo_q for o in self.win_offs_lo]
         hi = [(kb + o) * self.y_stride + yhi_q for o in self.win_offs_hi]
         return torch.stack(lo, 1), torch.stack(hi, 1)
@@ -296,7 +382,7 @@ class DepositTile:
                             self.y_range - 1).to(torch.int32)
         yhi_q = torch.clamp(torch.ceil((y_hi - self.y_lo) * YQ), -1e9,
                             self.y_range).to(torch.int32)
-        lo_keys, hi_keys = self._build_windows(kb, ylo_q, yhi_q)
+        lo_keys, hi_keys = self._build_windows(packed, tv, kb, ylo_q, yhi_q)
         big = self._sentinel_key() + self.y_stride
         lo_keys = torch.where(dead[:, None], big, lo_keys).to(torch.int32)
         hi_keys = torch.where(dead[:, None], big, hi_keys).to(torch.int32)
@@ -332,22 +418,19 @@ class DepositTile:
             return dkeys, dep_packed, Dp, order
         return dkeys, dep_packed, Dp
 
-    def _window_lanes(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int):
-        """Per-(tile, window) lane intervals [s, e), disjoint via a cascade:
-        each start moves past the previous window's end."""
+    def _raw_window_lanes(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int):
+        """Per-(tile, window) lane intervals [s, e) of the window keys,
+        before the cascade."""
         K = len(self.win_offs)
         s_lane = torch.searchsorted(dkeys, prep.lo_keys.reshape(-1)).reshape(n_tiles, K)
         e_lane = torch.searchsorted(dkeys, prep.hi_keys.reshape(-1),
                                     right=True).reshape(n_tiles, K)
-        prev_e = torch.zeros_like(s_lane[:, 0])
-        s_cols, e_cols = [], []
-        for k in range(K):
-            s_k = torch.maximum(s_lane[:, k], prev_e)
-            e_k = torch.maximum(e_lane[:, k], s_k)
-            s_cols.append(s_k)
-            e_cols.append(e_k)
-            prev_e = e_k
-        return torch.stack(s_cols, 1), torch.stack(e_cols, 1)
+        return s_lane, e_lane
+
+    def _window_lanes(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int):
+        """Per-(tile, window) lane intervals [s, e), disjoint via a cascade:
+        each start moves past the previous window's end."""
+        return _cascade(*self._raw_window_lanes(prep, dkeys, n_tiles))
 
     def _kernel_call(self, packed: torch.Tensor, dep: Deposits, prep: HpLayout):
         n_tiles = packed.shape[0] // self.tile
@@ -387,6 +470,127 @@ class DepositTile:
         cnt_pad, fl_pad, overflow = self._kernel_call(packed, dep, prep)
         cnt, fl = self.unpack_state(prep, cnt_pad, fl_pad)
         return cnt, hp.wgt * fl / math.pi, overflow
+
+
+class DepositBlock(DepositTile):
+    """``deposit_fn(hp, dep) -> (d_nphot, d_tao, overflow)``, block-granular
+    (``PallasDeposit``, the CLI's ``--deposit pallas``).
+
+    Each tile's window intervals widen to whole ``wchunk``-aligned deposit
+    blocks, cascaded at block granularity so that no block is counted twice
+    (a lane of a fetched block that is no neighbour fails the pair test:
+    adjacent buckets lie 2r apart, invalid lanes at 1e9).  Every tile gets
+    at least one item, so that its output row is written.  Items beyond
+    ``work_cap`` are dropped: a tile straddling the cap keeps its partial
+    sums, a tile whose first item lies beyond it reads 0, and ``overflow``
+    = (items - W) x wchunk bounds the candidate lanes skipped
+    (``photon_rounds`` folds it into ``deposits_dropped``).
+    """
+
+    def __init__(self, tile: int = 512, wchunk: int = 1024, work_cap: int = 8192, **kw):
+        super().__init__(tile=tile, chunk=wchunk, **kw)
+        self.wchunk = wchunk
+        self.work_cap = work_cap
+
+    def work_list(self, prep: HpLayout, dkeys: torch.Tensor, n_tiles: int, Dp: int):
+        """Kernel #5's work list (deposit_pallas.py:440-527): (wt, blk, wcmp),
+        each (W,) int32 sorted by tile, ``overflow`` (int32) and ``total``,
+        the number of items the round needs.  Pad items beyond the real ones
+        repeat the last real item's tile and block and compute nothing."""
+        wc, W = self.wchunk, self.work_cap
+        if W < n_tiles + 1:
+            raise ValueError(f"work_cap {W} must exceed the tile count {n_tiles}")
+        n_blocks = Dp // wc
+        s_lane, e_lane = self._raw_window_lanes(prep, dkeys, n_tiles)
+        live = e_lane > s_lane
+        sb = torch.where(live, s_lane // wc, 0)
+        eb = torch.where(live, (e_lane + wc - 1) // wc, 0)
+        s_win, e_win = _cascade(sb, eb)
+        nc = torch.clamp_min(e_win - s_win, 0)
+        nc_tile = nc.sum(1)
+        items = torch.clamp_min(nc_tile, 1)        # every tile writes its row
+        cum = torch.cumsum(items, 0)
+        total = cum[-1]
+        s_idx = torch.arange(W, device=dkeys.device)
+        wt = torch.clamp_max(torch.searchsorted(cum, s_idx, right=True), n_tiles - 1)
+        j = s_idx - (cum[wt] - items[wt])
+        K = nc.shape[1]
+        ncc_w = torch.cumsum(nc, 1)[wt]                     # (W, K)
+        w_id = torch.clamp_max((j[:, None] >= ncc_w).sum(1), K - 1)
+        prev = torch.gather(ncc_w, 1, torch.clamp_min(w_id - 1, 0)[:, None])[:, 0]
+        prev = torch.where(w_id > 0, prev, 0)
+        blk = torch.gather(s_win[wt], 1, w_id[:, None])[:, 0] + (j - prev)
+        real = s_idx < total
+        compute = real & (j < nc_tile[wt])
+        blk = torch.clamp(blk, 0, n_blocks - 1)
+        last = torch.clamp_max(total - 1, W - 1)
+        i32 = lambda x: x.to(torch.int32).contiguous()
+        overflow = (torch.clamp_min(total - W, 0) * wc).to(torch.int32)
+        return (i32(torch.where(real, wt, wt[last])), i32(torch.where(real, blk, blk[last])),
+                i32(compute), overflow, total)
+
+    def _kernel_call(self, packed: torch.Tensor, dep: Deposits, prep: HpLayout):
+        """(cnt_pad, flux_pad, overflow) in layout space, through kernel #5."""
+        n_tiles = packed.shape[0] // self.tile
+        dkeys, dep_packed, Dp = self._dep_sorted(dep, self.wchunk)
+        wt, blk, wcmp, overflow, _ = self.work_list(prep, dkeys, n_tiles, Dp)
+        out = deposit_block(wt, blk, wcmp, packed, dep_packed, self.tile, self.wchunk)
+        return out[:, 0], out[:, 1:4], overflow
+
+
+class DepositZTile(DepositTile):
+    """Two-level banded tile deposit (``PallasDepositZTile``): coarse z
+    buckets (``z_coarse``, default 8 x 2r) inside each 2r x band, so that
+    a tile on a dense wall slab fetches its own z bucket's y window and not
+    the slab's whole z extent.
+
+    Keys are (kx, coarse kz, quantized y); per tile K = 6 windows: for each
+    dx in (-1, 0, 1), slot A is the tile's lowest overlapped z bucket and
+    slot B the buckets above it up to its highest (empty when the tile
+    fits one bucket), each over the tile's y window.  Windows are supersets
+    and the pair test is the filter.  It runs on ``deposit_tile`` (no
+    kernel of its own) and has no cap.
+    """
+
+    def __init__(self, tile: int = 128, chunk: int = 1024,
+                 z_coarse: float = 8.0 * 2.0 * SEARCH_R, z_lo: float = DEFAULT_Z_LO,
+                 z_hi: float = DEFAULT_Z_HI, **kw):
+        kw["bucket2d"] = False
+        super().__init__(tile=tile, chunk=chunk, z_lo=z_lo, z_hi=z_hi, **kw)
+        self.z_coarse = float(z_coarse)
+        self.n_bzc = int(math.ceil((z_hi - z_lo) / self.z_coarse)) + 1
+        self.n_buckets = self.n_bx * self.n_bzc
+        # K = 6 windows, built per tile in _build_windows.
+        self.win_offs = [0] * 6
+        self.win_offs_lo = self.win_offs
+        self.win_offs_hi = self.win_offs
+
+    def _bid(self, pos: torch.Tensor) -> torch.Tensor:
+        kx = torch.floor((pos[:, self.ax] - self.x_lo) / self.bucket)
+        kx = torch.clamp(kx.to(torch.int32), 0, self.n_bx - 1)
+        kz = torch.floor((pos[:, self.az] - self.z_lo) / self.z_coarse)
+        return kx * self.n_bzc + torch.clamp(kz.to(torch.int32), 0, self.n_bzc - 1)
+
+    def _sentinel_key(self) -> int:
+        # Above every window: hi windows reach bucket n_buckets + n_bzc - 1.
+        return (self.n_buckets + self.n_bzc + 2) * self.y_stride
+
+    def _build_windows(self, packed, tv, kb, ylo_q, yhi_q):
+        n_tiles, t = kb.shape[0], self.tile
+        kx_t = kb // self.n_bzc
+        tz = packed[:, self.az].reshape(n_tiles, t)
+        z_lo_t = torch.where(tv, tz, torch.inf).amin(1) - self.search_r
+        z_hi_t = torch.where(tv, tz, -torch.inf).amax(1) + self.search_r
+        # Dead tiles read inf here; prepare() gives them the sentinel.
+        kz = lambda z: torch.clamp(torch.floor((z - self.z_lo) / self.z_coarse),
+                                   0, self.n_bzc - 1).to(torch.int32)
+        kz_lo, kz_hi = kz(z_lo_t), kz(z_hi_t)
+        lo, hi = [], []
+        for dx in (-1, 0, 1):
+            b = (kx_t + dx) * self.n_bzc
+            lo += [(b + kz_lo) * self.y_stride + ylo_q, (b + kz_lo + 1) * self.y_stride + ylo_q]
+            hi += [(b + kz_lo) * self.y_stride + yhi_q, (b + kz_hi) * self.y_stride + yhi_q]
+        return torch.stack(lo, 1), torch.stack(hi, 1)
 
 
 def world_bounds_from_scene(scene, margin: float = 4.0 * SEARCH_R,

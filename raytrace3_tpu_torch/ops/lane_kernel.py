@@ -21,10 +21,16 @@ the deposit of the gradient path (``diff.train.default_deposit_vjp``):
     sorted by deposit chunk; gradients reach ``hp.wgt`` and ``dep.flux``
     only (the box kernel's derivative is zero almost everywhere).
 
+``DepositStream`` (``PallasDepositStream``) keeps this work list but hands
+each tile its run of items with the fetch ``f`` and the lane mask packed as
+``((wa - f) << 16) | (wb - f)``, for ``deposit_stream`` (kernel #6,
+``csrc/deposit_stream.cu``).
+
 CUDA tensors launch the kernels (or raise); CPU tensors take
-:func:`deposit_lane_plain` and :func:`deposit_lane_bwd_plain`, nothing
-else.  Sorts are stable; JAX's leaves the order of equal keys open, which
-moves only the order of flux sums.
+:func:`deposit_lane_plain`, :func:`deposit_lane_bwd_plain` and
+:func:`deposit_stream_plain`, nothing else.  Sorts are stable; JAX's
+leaves the order of equal keys open, which moves only the order of flux
+sums.
 """
 
 from __future__ import annotations
@@ -50,6 +56,14 @@ BACKWARD = CudaKernel("deposit_lane_bwd.cu", "rt3_deposit_lane_bwd", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # packed, u, dep
     ctypes.c_longlong, ctypes.c_void_p,                             # Dp, out
 ])
+STREAM = CudaKernel("deposit_stream.cu", "rt3_deposit_stream", [
+    ctypes.c_void_p, ctypes.c_void_p,                               # itf, itab
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # starts, ends, n_tiles, tile
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,            # packed, dep, Dp
+    ctypes.c_void_p,                                                # out
+])
+#: The stream items' 16-bit mask fields hold offsets up to 2 chunks.
+MAX_STREAM_CHUNK = 0x7FFF
 #: the forward's fetch alignment on the TPU (the DMA's lane granule): item
 #: boundaries, and so work-item counts and overflow, follow it
 FETCH_ALIGN = 128
@@ -181,6 +195,62 @@ def deposit_lane_bwd(run_lo: torch.Tensor, run_hi: torch.Tensor, wt: torch.Tenso
         return deposit_lane_bwd_plain(run_lo, run_hi, wt, wa, wb, packed, u,
                                       dep_packed, tile)
     raise ValueError(f"no lane deposit kernel for device {packed.device}")
+
+
+def stream_mask(itf: torch.Tensor, itab: torch.Tensor):
+    """The lane interval [wa, wb) of each stream item: its fetch ``itf``
+    plus the two 16-bit offsets packed in ``itab``."""
+    f = itf.long()
+    return f + (itab.long() >> 16), f + (itab.long() & 0xFFFF)
+
+
+def deposit_stream_plain(itf: torch.Tensor, itab: torch.Tensor, starts: torch.Tensor,
+                         ends: torch.Tensor, packed: torch.Tensor,
+                         dep_packed: torch.Tensor,
+                         pairs_per_step: int = 1 << 22) -> torch.Tensor:
+    """Kernel #6's contract in plain PyTorch: count (col 0) and raw RGB flux
+    (cols 1:4) per hit slot of tile i over the decoded lanes [wa, wb) of its
+    items [starts[i], ends[i]); tiles with an empty run read 0."""
+    wa, wb = stream_mask(itf, itab)
+    tile_of, item = _runs_items(starts, ends)
+    Dp = dep_packed.shape[1]
+    return intervals_plain(tile_of, torch.clamp(wa[item], 0, Dp), torch.clamp(wb[item], 0, Dp),
+                           packed, dep_packed, starts.shape[0], pairs_per_step)
+
+
+def _deposit_stream_cuda(itf, itab, starts, ends, packed, dep_packed):
+    dev = packed.device
+    n_tiles, W = starts.shape[0], itf.shape[0]
+    check("itf", itf, torch.int32, (W,), dev)
+    check("itab", itab, torch.int32, (W,), dev)
+    check("starts", starts, torch.int32, (n_tiles,), dev)
+    check("ends", ends, torch.int32, (n_tiles,), dev)
+    if n_tiles < 1 or packed.shape[0] % n_tiles:
+        raise ValueError(f"{packed.shape[0]} hit slots are not {n_tiles} tiles")
+    tile = packed.shape[0] // n_tiles
+    _check_layout(packed, dep_packed, tile, dev)
+    out = torch.empty((packed.shape[0], 8), dtype=torch.float32, device=dev)
+    STREAM.launch(dev, ptr(itf), ptr(itab), ptr(starts), ptr(ends), n_tiles, tile,
+                  ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+    return out
+
+
+def deposit_stream(itf: torch.Tensor, itab: torch.Tensor, starts: torch.Tensor,
+                   ends: torch.Tensor, packed: torch.Tensor,
+                   dep_packed: torch.Tensor) -> torch.Tensor:
+    """Count (col 0) and raw RGB flux (cols 1:4) per hit slot, (c_pad, 8).
+
+    ``itf``, ``itab``: (W,) int32 stream items (fetch, packed lane mask,
+    :func:`stream_mask`); ``starts``, ``ends``: (n_tiles,) int32 runs of
+    items per tile; ``packed``: (c_pad, 8) hit slots; ``dep_packed``:
+    (16, Dp) sorted deposits.  CUDA tensors launch kernel #6 (or raise);
+    CPU tensors take :func:`deposit_stream_plain`.
+    """
+    if packed.is_cuda:
+        return _deposit_stream_cuda(itf, itab, starts, ends, packed, dep_packed)
+    if packed.device.type == "cpu":
+        return deposit_stream_plain(itf, itab, starts, ends, packed, dep_packed)
+    raise ValueError(f"no stream deposit kernel for device {packed.device}")
 
 
 class _LaneDeposit(torch.autograd.Function):
@@ -363,3 +433,42 @@ class DepositLane(DepositTile):
         d_flux = torch.zeros((D, 3), dtype=torch.float32, device=u.device)
         d_flux[d_ord] = out[:, :D].T
         return d_flux
+
+
+class DepositStream(DepositLane):
+    """``DepositLane``'s work list streamed per tile (``PallasDepositStream``):
+    each tile walks its run of items, each item a 128-aligned fetch ``f``
+    and a lane mask packed as ``((wa - f) << 16) | (wb - f)``, through
+    kernel #6.  Items beyond ``work_cap`` are dropped and counted in
+    ``overflow``, as in ``DepositLane``.  ``nbuf`` is the depth of the TPU
+    kernel's DMA ring; the card's kernel stages one item at a time and does
+    not read it.
+    """
+
+    def __init__(self, *a, nbuf: int = 2, **kw):
+        super().__init__(*a, **kw)
+        if self.chunk > MAX_STREAM_CHUNK:
+            raise ValueError(f"chunk {self.chunk} does not fit the items' 16-bit "
+                             f"mask fields (at most {MAX_STREAM_CHUNK})")
+        self.nbuf = nbuf
+
+    def stream_items(self, sk, ek, n_tiles: int, Dp: int):
+        """Kernel #6's work list (deposit_pallas.py:1200-1240): (itf, itab,
+        starts, ends, overflow)."""
+        ch, W = self.chunk, self.work_cap
+        _, f, wa, wb, nc_tile, cum, total = self._build_items(sk, ek, n_tiles, W, Dp,
+                                                              FETCH_ALIGN)
+        itab = (torch.clamp(wa - f, 0, 2 * ch) << 16) | torch.clamp(wb - f, 0, 2 * ch)
+        i32 = lambda x: x.to(torch.int32).contiguous()
+        overflow = (torch.clamp_min(total - W, 0) * ch).to(torch.int32)
+        return (i32(f), i32(itab), i32(torch.clamp_max(cum - nc_tile, W)),
+                i32(torch.clamp_max(cum, W)), overflow)
+
+    def _kernel_call(self, packed: torch.Tensor, dep: Deposits, prep: HpLayout):
+        """(cnt_pad, flux_pad, overflow) in layout space, through kernel #6."""
+        n_tiles = packed.shape[0] // self.tile
+        dkeys, dep_packed, Dp = self._dep_sorted(dep, self.chunk)
+        sk, ek = self._window_lanes(prep, dkeys, n_tiles)
+        itf, itab, starts, ends, overflow = self.stream_items(sk, ek, n_tiles, Dp)
+        out = deposit_stream(itf, itab, starts, ends, packed, dep_packed)
+        return out[:, 0], out[:, 1:4], overflow

@@ -9,8 +9,8 @@ it with:
 
 Tolerances: the kernels are built with -fmad=false and evaluate in the
 plain twins' operation order, so Newton outputs and deposit counts agree
-exactly; deposit flux sums, the lane deposit's and its transpose's,
-differ only in summation order (rtol 1e-5).
+exactly; deposit flux sums (tile, block, stream and lane deposits, the
+lane transpose) differ only in summation order (rtol 1e-5).
 """
 
 import numpy as np
@@ -19,12 +19,14 @@ import torch
 
 from raytrace3_tpu_torch.core.types import Deposits, HitPoints
 from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
-from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
-                                                    deposit_tile_plain)
-from raytrace3_tpu_torch.ops.lane_kernel import (DepositLane, deposit_lane,
-                                                 deposit_lane_bwd,
+from raytrace3_tpu_torch.ops.deposit_kernel import (DepositBlock, DepositTile,
+                                                    deposit_block, deposit_block_plain,
+                                                    deposit_tile, deposit_tile_plain)
+from raytrace3_tpu_torch.ops.lane_kernel import (DepositLane, DepositStream,
+                                                 deposit_lane, deposit_lane_bwd,
                                                  deposit_lane_bwd_plain,
-                                                 deposit_lane_plain)
+                                                 deposit_lane_plain, deposit_stream,
+                                                 deposit_stream_plain)
 from raytrace3_tpu_torch.ops.newton_kernel import solve, solve_plain
 from raytrace3_tpu_torch.scenes import _teapot_ctrl
 
@@ -185,3 +187,46 @@ def test_lane_vjp_on_the_card_matches_the_cpu(cuda_device):
     for a, b in zip(g[1:4], c[1:4]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert g[4] == c[4] == 0 and float(c[3].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("tile", [512, 1024])
+def test_block_kernel_matches_plain(cuda_device, tile):
+    """Kernel #5 at the CLI's two tile sizes (1024 threads a block at the
+    reference1024 preset's)."""
+    hp, dep = _wall_case(np.random.default_rng(3), 20000, 200000, cuda_device)
+    pd = DepositBlock(tile=tile, wchunk=1024, work_cap=65536, x_lo=-8.0, x_hi=48.0,
+                      y_lo=-8.0, y_hi=88.0)
+    prep = pd.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    dkeys, dep_packed, Dp = pd._dep_sorted(dep, pd.wchunk)
+    wt, blk, wcmp, overflow, _ = pd.work_list(prep, dkeys, packed.shape[0] // tile, Dp)
+    assert int(overflow) == 0
+    before = deposit_kernel.BLOCK_KERNEL.launches
+    got = deposit_block(wt, blk, wcmp, packed, dep_packed, tile, pd.wchunk)
+    torch.cuda.synchronize()
+    assert deposit_kernel.BLOCK_KERNEL.launches == before + 1
+    want = deposit_block_plain(wt, blk, wcmp, packed, dep_packed, tile, pd.wchunk)
+    assert float(want[:, 0].sum()) > 1000
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    with pytest.raises(TypeError):
+        deposit_block(wt.long(), blk, wcmp, packed, dep_packed, tile, pd.wchunk)
+
+
+def test_stream_kernel_matches_plain(cuda_device):
+    """Kernel #6 on the lane deposit's round, with the work cap cut to half
+    the items so that tiles straddle it and beyond it read 0."""
+    pd, packed, dep_packed, sk, ek, n_tiles, Dp, hp, dep, prep = _lane_round(
+        "small", cuda_device)
+    ps = DepositStream(**dict(LANE_KW, work_cap=int(pd.work_items(hp, dep, prep)) // 2))
+    itf, itab, starts, ends, overflow = ps.stream_items(sk, ek, n_tiles, Dp)
+    assert int(overflow) > 0
+    before = lane_kernel.STREAM.launches
+    got = deposit_stream(itf, itab, starts, ends, packed, dep_packed)
+    torch.cuda.synchronize()
+    assert lane_kernel.STREAM.launches == before + 1
+    want = deposit_stream_plain(itf, itab, starts, ends, packed, dep_packed)
+    assert float(want[:, 0].sum()) > 1000
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

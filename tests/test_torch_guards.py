@@ -21,6 +21,7 @@ import torch
 
 from raytrace3_tpu_torch import scenes
 from raytrace3_tpu_torch.ops import cuda_build, deposit_kernel, lane_kernel, newton_kernel
+from raytrace3_tpu_torch.render import driver
 from raytrace3_tpu_torch.render.driver import build_scene
 from raytrace3_tpu_torch.utils.config import RenderConfig
 
@@ -40,7 +41,9 @@ def test_package_and_smoke_script_import_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'raytrace3_tpu'))\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 30, names\n"
+        "assert {'raytrace3_tpu_torch.cli', 'raytrace3_tpu_torch.ops.grid', "
+        "'raytrace3_tpu_torch.utils.image'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     assert proc.returncode == 0, proc.stderr
@@ -119,17 +122,50 @@ def test_lane_wrappers_take_the_plain_twins_on_cpu_and_raise_elsewhere():
         lane_kernel.deposit_lane_bwd(*map(meta, (*run, wt, wa, wb, packed, u, dep)), 32, 128)
 
 
+def test_block_and_stream_wrappers_take_the_plain_twins_on_cpu_and_raise_elsewhere():
+    sk, ek, packed, dep = _tile_case(np.random.default_rng(3))
+    dep = torch.cat([dep, torch.zeros((16, 56))], 1)              # 2 blocks of 128
+    wt = torch.tensor([0, 0, 1, 2, 2], dtype=torch.int32)
+    blk = torch.tensor([0, 1, 1, 0, 0], dtype=torch.int32)
+    wcmp = torch.tensor([1, 1, 1, 1, 0], dtype=torch.int32)
+    itf = torch.tensor([0, 128, 0], dtype=torch.int32)
+    itab = torch.tensor([(5 << 16) | 90, 40, (3 << 16) | 128], dtype=torch.int32)
+    starts, ends = (torch.tensor(x, dtype=torch.int32) for x in ([0, 2, 3], [2, 3, 3]))
+    before = (deposit_kernel.BLOCK_KERNEL.launches, lane_kernel.STREAM.launches)
+    blk_out = deposit_kernel.deposit_block(wt, blk, wcmp, packed, dep, 32, 128)
+    assert torch.equal(blk_out, deposit_kernel.deposit_block_plain(wt, blk, wcmp, packed,
+                                                                   dep, 32, 128))
+    st_out = lane_kernel.deposit_stream(itf, itab, starts, ends, packed, dep)
+    assert torch.equal(st_out, lane_kernel.deposit_stream_plain(itf, itab, starts, ends,
+                                                                packed, dep))
+    assert float(blk_out[:, 0].sum()) > 0 and float(st_out[:, 0].sum()) > 0
+    assert float(st_out[64:].abs().sum()) == 0                    # tile 2: empty run
+    assert (deposit_kernel.BLOCK_KERNEL.launches, lane_kernel.STREAM.launches) == before
+    assert deposit_kernel.BLOCK_KERNEL._fn is None and lane_kernel.STREAM._fn is None
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError):
+        deposit_kernel.deposit_block(*map(meta, (wt, blk, wcmp, packed, dep)), 32, 128)
+    with pytest.raises(ValueError):
+        lane_kernel.deposit_stream(*map(meta, (itf, itab, starts, ends, packed, dep)))
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """The default device is "cuda"; without a card the entry points raise
     (checked with the card's availability mocked away), never run on the
-    CPU unasked."""
-    for fn in (build_scene, scenes.full, scenes.get_scene, scenes.reference_camera):
+    CPU unasked.  (The CLI's own check is in tests/test_torch_cli.py.)"""
+    for fn in (build_scene, driver.render, scenes.full, scenes.get_scene,
+               scenes.reference_camera, *scenes.REGISTRY.values()):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_scene(RenderConfig(scene="full", atlas_res=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         scenes.reference_camera(8, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenes.cornell_two_lights(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.render(RenderConfig(scene="cornell_diffuse", width=4, height=4, passes=1,
+                                   atlas_res=8))
     assert build_scene(RenderConfig(scene="full", atlas_res=8), device="cpu").device.type == "cpu"
 
 

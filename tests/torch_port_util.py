@@ -32,7 +32,8 @@ def port_scene(jax_scene, device="cpu"):
         flatten_to_numpy(jax_scene), device=device,
         bezier_uv_quirk=jax_scene.bezier_uv_quirk,
         bezier_compact_frac=jax_scene.bezier_compact_frac,
-        newton_iters=jax_scene.newton_iters)
+        newton_iters=jax_scene.newton_iters,
+        newton_restarts=jax_scene.newton_restarts)
 
 
 def random_case(rng, C=300, D=700):
