@@ -24,7 +24,10 @@ with a non-zero exit when it fails:
      rays of one photon segment at bench shapes (and the time of the
      default solver, ``solve_winner``, on the same rays);
   3. the tile deposit kernel against its plain twin on one bench round
-     (14 x 131072 deposits against the 512^2 hit-point layout);
+     (14 x 131072 deposits against the 512^2 hit-point layout), the flux
+     held to the twin summed in float64, with its launch geometry, the
+     lanes per tile, and its time over its bound and over its instruction
+     floor (twice the bound under -fmad=false);
   4. a small pass (32 x 32, 2 x 1024 photons) on the card against the same
      pass on the CPU (the plain twins) with the same draws, held to it one
      walk segment at a time (``raytrace3_tpu_torch.testing``);
@@ -44,7 +47,9 @@ with a non-zero exit when it fails:
  10. the block deposit kernel (#5) against its plain twin at the
      ``reference1024`` preset's shapes: the 1024^2 eye pass with the
      preset's schedule and one regen round (14 x 131072 deposits) through
-     ``DepositBlock`` as ``cli.py`` builds it (tile 1024, work cap 65536);
+     ``DepositBlock`` as ``cli.py`` builds it (tile 1024, work cap 65536),
+     with the same float64-summed twin, geometry and timing lines as
+     phase 3;
  11. the CLI path: ``cli.main(["--preset", "reference1024", "--passes",
      "3", ...])`` in process, with its metrics JSONL, checkpoint and PNG,
      the launch counters read around it; then a 64^2 render on the card
@@ -91,6 +96,11 @@ TIMED_PASSES = 2
 NEWTON_ATOL = 0.0
 #: Deposit: counts exactly; flux sums differ only in summation order (the
 #: plain twin accumulates with atomics), DEPOSIT_FLUX_RTOL of a slot's flux.
+#: Phases 3 and 10 hold the kernel to the twin with its flux summed in
+#: float64 (each slot's sum rounded once): the float32 twin's own rounding
+#: over thousands of passes on a caustic slot takes it 6.4e-6 from that on
+#: these rounds, the kernel 1.2e-6 at most (PERF.md section 6).  The
+#: float32 twin's distances are printed beside it.
 DEPOSIT_FLUX_RTOL = 1e-5
 #: Card vs CPU pass, the walks held segment by segment: every counter equal;
 #: the image within SMALL_L1_RTOL relative L1, since the deposit stage then
@@ -232,6 +242,34 @@ def compare_deposit(got, want) -> tuple[int, float, float]:
     return cnt_mismatch, rel, float((got - want).abs().max())
 
 
+def compare_deposit_witnessed(phase: int, got, plain, witness) -> tuple[int, float, float]:
+    """``compare_deposit`` of the kernel's ``got`` against the float64-summed
+    twin ``witness``; prints that and the float32 twin ``plain``'s distances
+    (from the kernel and from the witness)."""
+    cnt_mismatch, rel, err = compare_deposit(got, witness)
+    _, rel_plain, _ = compare_deposit(got, plain)
+    _, rel_twin, _ = compare_deposit(plain, witness)
+    print(f"[{phase}] count mismatches {cnt_mismatch}; max relative flux error against the "
+          f"float64-summed twin {rel:.3g} (max |d out| {err:.3g}); against the float32 twin "
+          f"{rel_plain:.3g}, which sits {rel_twin:.3g} from the float64-summed one")
+    return cnt_mismatch, rel, err
+
+
+def print_geometry(phase: int, geom, lanes: torch.Tensor, row: dict, card: str) -> None:
+    """A deposit kernel's launch geometry, lanes per tile and time against
+    its bound and its instruction floor: under -fmad=false no multiply-add
+    fuses, so the card's 67 TFLOP/s (an FMA counted as two operations)
+    executes half the operations the bound assumes."""
+    lanes = lanes.double()
+    print(f"[{phase}] launch geometry: {geom.threads} threads a block = {geom.slot_threads} "
+          f"slot threads x {geom.splits} lane splits, {geom.gsplits} block(s) a tile, "
+          f"{geom.shared_bytes} B shared; lanes per tile max {int(lanes.max())}, mean "
+          f"{float(lanes.mean()):.0f} over {lanes.numel()} tiles")
+    print(f"[{phase}] kernel {row['ms']:.3f} ms = {row['ms'] / row['bound_ms']:.2f}x its bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), {row['ms'] / (2 * row['bound_ms']):.2f}x "
+          f"the instruction floor {2 * row['bound_ms']:.3f} ms ({card})")
+
+
 def timed_once(fn):
     """(result, device ms) of one call of ``fn``, by CUDA events."""
     torch.cuda.synchronize()
@@ -344,7 +382,7 @@ def bench_hitpoints(device):
 
 def phase_deposit(card: str, device, deps) -> dict:
     """Kernel vs plain on one bench round against the 512^2 layout."""
-    from raytrace3_tpu_torch.ops.deposit_kernel import (deposit_tile,
+    from raytrace3_tpu_torch.ops.deposit_kernel import (deposit_geometry, deposit_tile,
                                                         deposit_tile_plain,
                                                         make_tile_deposit,
                                                         world_bounds_from_scene)
@@ -363,27 +401,25 @@ def phase_deposit(card: str, device, deps) -> dict:
 
     got = deposit_tile(sk, ek, packed, dep_packed)
     want = deposit_tile_plain(sk, ek, packed, dep_packed)
-    cnt_mismatch = int((got[:, 0] != want[:, 0]).sum())
-    dflux = (got[:, 1:4] - want[:, 1:4]).abs()
-    rel = float((dflux / want[:, 1:4].abs().clamp_min(1e-6)).max())
-    err = float((got - want).abs().max())
+    want64 = deposit_tile_plain(sk, ek, packed, dep_packed, sum_dtype=torch.float64)
     pairs = int((ek - sk).sum()) * TILE
     ms = cuda_ms(lambda: deposit_tile(sk, ek, packed, dep_packed))
     plain_ms = cuda_ms(lambda: deposit_tile_plain(sk, ek, packed, dep_packed), 3)
     print(f"[3] deposit: {int(deps.valid.sum())} valid of {deps.pos.shape[0]} deposits, "
           f"{int(st['count'])} hit points in {n_tiles} tiles of {TILE}, "
           f"{pairs / 1e9:.3f} G pair tests; pairs found {int(want[:, 0].sum())}")
-    print(f"[3] deposit: count mismatches {cnt_mismatch}, max relative flux error "
-          f"{rel:.3g}, max |d out| {err:.3g}")
+    cnt_mismatch, rel, err = compare_deposit_witnessed(3, got, want, want64)
     print(f"[3] deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
     if cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or int(want[:, 0].sum()) == 0:
         raise SystemExit("phase 3 failed: the deposit kernel disagrees with its plain twin")
     taken = float(want[:, 0].sum())
     c_pad, Dp = packed.shape[0], dep_packed.shape[1]
     nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * sk.numel() * 4
-    return kernel_row("deposit_tile", "deposit_tile.cu",
-                      "raytrace3_tpu/ops/deposit_pallas.py:862", err, ms, plain_ms,
-                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    row = kernel_row("deposit_tile", "deposit_tile.cu",
+                     "raytrace3_tpu/ops/deposit_pallas.py:862", err, ms, plain_ms,
+                     PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    print_geometry(3, deposit_geometry(TILE), (ek - sk).clamp_min(0).sum(1), row, card)
+    return row
 
 
 def phase_small(device) -> None:
@@ -710,7 +746,8 @@ def preset_round(device) -> dict:
 def phase_block(card: str, device) -> dict:
     """Kernel #5 vs its plain twin on one reference1024 round."""
     from raytrace3_tpu_torch.ops.deposit_kernel import (DepositBlock, deposit_block,
-                                                        deposit_block_plain)
+                                                        deposit_block_plain,
+                                                        deposit_geometry)
 
     cfg, depo, hp, st, deps = preset_round(device)
     if not (isinstance(depo, DepositBlock) and depo.tile == 1024 and depo.work_cap == 65536):
@@ -725,7 +762,7 @@ def phase_block(card: str, device) -> dict:
     args = (wt, blk, wcmp, packed, dep_packed, depo.tile, depo.wchunk)
     got = deposit_block(*args)
     want, plain_ms = timed_once(lambda: deposit_block_plain(*args))
-    cnt_mismatch, rel, err = compare_deposit(got, want)
+    want64 = deposit_block_plain(*args, sum_dtype=torch.float64)
     computing = int(wcmp.sum())
     pairs = computing * depo.wchunk * depo.tile
     taken = float(want[:, 0].sum())
@@ -735,8 +772,7 @@ def phase_block(card: str, device) -> dict:
           f"{int(st['dropped'])}) in {n_tiles} tiles of {depo.tile}; {int(total)} work "
           f"items needed of W = {depo.work_cap} ({computing} computing), overflow "
           f"{int(overflow)}; {pairs / 1e9:.3f} G pair tests, pairs taken {int(taken)}")
-    print(f"[10] block deposit: count mismatches {cnt_mismatch}, max relative flux error "
-          f"{rel:.3g}, max |d out| {err:.3g}")
+    cnt_mismatch, rel, err = compare_deposit_witnessed(10, got, want, want64)
     print(f"[10] block deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one call) "
           f"({card})")
     if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0 or int(overflow) != 0
@@ -748,8 +784,8 @@ def phase_block(card: str, device) -> dict:
     row = kernel_row("deposit_block", "deposit_block.cu",
                      "raytrace3_tpu/ops/deposit_pallas.py:88", err, ms, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
-    print(f"[10] block deposit: bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
-          f"kernel at {ms / row['bound_ms']:.1f}x it ({card})")
+    items = torch.bincount(wt.long()[wcmp != 0], minlength=n_tiles)
+    print_geometry(10, deposit_geometry(depo.tile), items * depo.wchunk, row, card)
     return row
 
 

@@ -18,32 +18,40 @@
 // first item lies at or beyond W) reads 0: the TPU version's "handled"
 // mask (deposit_pallas.py:517-524) falls out of the run bounds.
 //
-// Design on Hopper.  The TPU walks the items in order on one core and
-// flushes a tile's accumulator when the tile changes.  Here one block per
-// tile (blockDim = tile, up to 1024 threads, one per hit slot) finds its
-// own run [lo, hi) of items by binary search over the sorted wt, so blocks
-// own disjoint output rows and need no atomics, and every output row is
-// written (the wrapper's torch.empty is safe only because of that).  Per
-// computing item the block stages the whole block of wchunk lanes (rows
-// 0-8) kStage lanes at a time in shared memory (deposit_pair.cuh, 18 KB) and
-// every thread tests its hit point against them, accumulating in registers.
-// __launch_bounds__(1024) holds the kernel to 64 registers a thread so that
-// a 1024-slot tile launches.
+// The TPU walks the items in order on one core and flushes a tile's
+// accumulator when the tile changes.  Here each block of a tile finds the
+// tile's run [lo, hi) of items by binary search over the sorted wt, so
+// blocks own disjoint rows of the grid splits' scratch and need no atomics.
+// Every block writes its rows, zeros for a tile with no item, and
+// combine_partials writes every output row from them (the wrapper's
+// torch.empty is safe only because of that).
 //
-// Bound: the pair tests, 15 fp32 operations each plus 4 adds per pair
-// taken, over (computing items) x wchunk x tile; bytes are small beside
-// them.  Built with -fmad=false, so counts match the plain PyTorch version
-// in raytrace3_tpu_torch/ops/deposit_kernel.py exactly and flux up to fp32
-// summation order.
+// What bounds it on an H100: instruction throughput, not bytes, as for the tile
+// deposit (deposit_tile.cu): the reference1024 round tests 13.2 G pairs
+// (12,930 computing items of 1024 lanes x 1024 slots) and moves ~120 MB;
+// under -fmad=false the instruction floor is twice chip_smoke.py's bound.
+//
+// Design (deposit_stage.cuh, as deposit_tile.cu): each computing item is
+// one interval of wchunk lanes; R = 4 slots a thread, float4 groups, pass
+// bits, fp32 sums, a 2-deep cp.async ring of 512-lane stages, 8 blocks a
+// tile.  The first version ran one 1024-thread block a tile at 54
+// registers (one block, half the warps, on an SM, stalled whole on each
+// stage's plain copies), and walked a tile's items one global load at a
+// time: the list's pad items (wcmp = 0, all in the last real item's tile,
+// 52,606 of 65,536 at the preset) made that tile's block the tail.  Here a
+// block is 256 threads (2 an SM at 111 registers) and trims its run's
+// trailing non-computing items in one parallel pass.  SASS per pair test:
+// 24.75 before, 16.3 on the test path and 17.6 with the flux adds after.
+// On the reference1024 round: 9.721 ms against the first version's 26.386
+// ms in the same run, counts exact, flux 1.2e-6 from the plain twin summed
+// in float64 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6,
+// scripts/perf_deposit_kernels.py).
 
 #include <cuda_runtime.h>
 
-#include "deposit_pair.cuh"
+#include "deposit_stage.cuh"
 
 namespace {
-
-constexpr int kStage = 512;
-constexpr int kMaxTile = 1024;
 
 // First index in the sorted wt[0, n) whose value is >= key.
 __device__ __forceinline__ int lower_bound(const int* __restrict__ wt, int n, int key) {
@@ -55,38 +63,63 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ wt, int n, in
   return lo;
 }
 
-__global__ void __launch_bounds__(kMaxTile)
-deposit_block_kernel(const int* __restrict__ wt, const int* __restrict__ blk,
-                     const int* __restrict__ wcmp, int n_items, int wchunk,
-                     const float* __restrict__ packed,
-                     const float* __restrict__ dep, long long dp,
-                     float* __restrict__ out) {
-  __shared__ float sd[9][kStage];
+// The tile's computing items, each the whole block blk[s] clipped to Dp.
+struct TileItems {
+  const int* __restrict__ blk;
+  const int* __restrict__ wcmp;
+  int lo, hi, wchunk;
+  long long dp;
 
-  const int tile = blockIdx.x;
-  const long long slot = (long long)tile * blockDim.x + threadIdx.x;
-  const rt3::HitSlot h = rt3::load_slot(packed + slot * 8);
-
-  float cnt = 0.0f, f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-  const int lo = lower_bound(wt, n_items, tile);
-  const int hi = lower_bound(wt, n_items, tile + 1);
-  for (int s = lo; s < hi; ++s) {
-    if (wcmp[s] == 0) continue;              // the same for every thread
-    const long long a = (long long)max(blk[s], 0) * wchunk;
-    const long long b = min(a + wchunk, dp);
-    if (a >= b) continue;
-    rt3::accumulate_lanes<kStage>(sd, dep, dp, (int)a, (int)b, h, cnt, f0, f1, f2);
+  __device__ int count() const { return hi - lo; }
+  __device__ void get(int i, long long& a, long long& b) const {
+    const int s = lo + i;
+    if (wcmp[s] == 0) {                     // tests nothing
+      a = b = 0;
+      return;
+    }
+    a = (long long)max(blk[s], 0) * wchunk;
+    b = min(a + wchunk, dp);
   }
-  rt3::store_row(out + slot * 8, cnt, f0, f1, f2);
+};
+
+__global__ void __launch_bounds__(rt3::kMaxThreads, rt3::kMinBlocks)
+deposit_block_kernel(const int* __restrict__ wt, const int* __restrict__ blk,
+                     const int* __restrict__ wcmp, int n_items, int wchunk, int tile,
+                     int splits, const float* __restrict__ packed,
+                     const float* __restrict__ dep, long long dp,
+                     float4* __restrict__ scratch, long long c_pad) {
+  const int t = blockIdx.x;
+  const int lo = lower_bound(wt, n_items, t);
+  // The list's pad items (wcmp = 0, all in the last real item's tile) can
+  // outnumber the real ones: drop the run's trailing non-computing items
+  // with one parallel pass rather than one dependent load each.
+  __shared__ int last;
+  if (threadIdx.x == 0) last = lo - 1;
+  __syncthreads();
+  const int hi = lower_bound(wt, n_items, t + 1);
+  for (int s = hi - 1 - (int)threadIdx.x; s > last; s -= blockDim.x) {
+    if (wcmp[s] != 0) {
+      atomicMax(&last, s);
+      break;
+    }
+  }
+  __syncthreads();
+  const TileItems src{blk, wcmp, lo, last + 1, wchunk, dp};
+  rt3::deposit_tile_over(src, tile, splits, packed, dep, dp, scratch, c_pad);
 }
 
 }  // namespace
 
+// threads, splits, gsplits, smem: the launch geometry (deposit_stage.cuh);
+// scratch: (gsplits, c_pad, 4) f32 for the grid splits' partial sums.
 extern "C" int rt3_deposit_block(const int* wt, const int* blk, const int* wcmp,
                                  int n_items, int wchunk, int n_tiles, int tile,
-                                 const float* packed, const float* dep,
-                                 long long dp, float* out, void* stream) {
-  deposit_block_kernel<<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
-      wt, blk, wcmp, n_items, wchunk, packed, dep, dp, out);
-  return (int)cudaGetLastError();
+                                 const float* packed, const float* dep, long long dp,
+                                 float* out, int threads, int splits, int gsplits, int smem,
+                                 float* scratch, void* stream) {
+  const long long c_pad = (long long)n_tiles * tile;
+  float4* part = reinterpret_cast<float4*>(scratch);
+  return rt3::launch_deposit(deposit_block_kernel, n_tiles, tile, threads, splits, gsplits,
+                             smem, c_pad, out, part, (cudaStream_t)stream, wt, blk, wcmp,
+                             n_items, wchunk, tile, splits, packed, dep, dp, part, c_pad);
 }

@@ -1,5 +1,5 @@
-// Banded photon deposit, one step per hit-point tile: count and raw RGB flux
-// of every deposit within each hit point's radius.
+// Banded photon deposit, one hit-point tile per CUDA block: count and raw
+// RGB flux of every deposit within each hit point's radius.
 //
 // Replaces raytrace3_tpu/ops/deposit_pallas.py:_tile_loop_kernel (driven by
 // PallasDepositTile._kernel_call).  Contract, as there:
@@ -11,61 +11,86 @@
 //              sit at 1e9, so d2 ~ 1e18 stays finite and fails);
 //   out        (c_pad, 8) f32: col 0 count, cols 1:4 flux sum, cols 4:8 zero.
 // A pair passes when |h - d|^2 <= r2_h and n_h . n_d > 1e-3.  No cap, no
-// overflow: every lane of every interval is visited.
+// overflow: every lane of every interval, clipped to [0, Dp), is tested
+// against every slot of the tile.
 //
-// Design on Hopper.  One block per tile, one thread per hit slot (blockDim =
-// tile); the block walks its K intervals in order, staging kStage deposit
-// lanes (rows 0-8 only) at a time in shared memory with coalesced loads, and
-// every thread tests its hit point against the staged lanes, accumulating in
-// registers.  Tiles own disjoint output rows, so no atomics.  The TPU-only
-// parts do not carry over: the 128-aligned DMA fetch with its lane mask, the
-// Dp - chunk clip and the flattened scalar-prefetch operands.  The staging
-// width kStage = 512 (18 KB of shared memory) is this kernel's own choice;
-// the TPU's chunk 2048 was a DMA tuning.
+// What bounds it on an H100: instruction throughput, not bytes.  The bench round
+// (tile 256) reads 9 rows x 1.8 M lanes once (66 MB, 0.02 ms at 3.35 TB/s)
+// and tests 2.6 G pairs.  A pair test is 15 fp32 instructions (8 for d2,
+// 5 for n . n, 2 compares), and nothing fuses: every source builds with
+// -fmad=false, which keeps the counts equal to the plain twin's.  The
+// bound in chip_smoke.py counts those 15 operations against 67 TFLOP/s,
+// a rate that counts an FMA as two, so one instruction a pair runs at
+// half of it: the instruction floor is twice the bound.
 //
-// Bound: the pair tests, 15 fp32 operations each (8 for d2, 5 for ndot, 2
-// compares) plus 4 adds per pair taken, over the candidate volume (all lanes
-// of the tile's K windows x tile), read from shared memory by broadcast.
-// The pair test is deposit_pair.cuh's, so the count matches the plain
-// PyTorch version in raytrace3_tpu_torch/ops/deposit_kernel.py exactly and
-// the flux up to fp32 summation order.
+// The first version (one thread per slot, 6 scalar shared loads and 4
+// predicated adds per pair test, plain copies between two barriers a
+// stage, one block per tile) ran 24.75 SASS instructions a pair test
+// (99 per 4 in its inner loop).  This one (deposit_stage.cuh) runs 16.3
+// on the test path (7 FADD, 6 FMUL, 2 FSETP, 0.94 LOP3, 0.38 LDS.128) and
+// 17.6 with the per-word count and flux adds counted once (2257 per 128 in
+// its word loop, cuobjdump -sass of the sm_90a build):
+//   * R = 4 hit slots a thread, so a staged lane serves 4 pair tests;
+//   * lanes read as float4 groups of 4 (6 128-bit loads per 16 pairs);
+//   * passes gathered as bits, count and flux added per word of 32 lanes,
+//     in fp32;
+//   * a 2-deep ring of 512-lane stages filled by 16-byte cp.async, one
+//     barrier a stage;
+//   * 256-thread blocks: ceil(tile / 4) slot threads x `splits` lane
+//     splits (4 at tile 256), 2 blocks an SM at 106 registers;
+//   * 8 blocks a tile (`gsplits`), each taking every 8th stage of the
+//     tile, their sums added in order by combine_partials: the heaviest
+//     tile of the bench round holds 16x the mean lanes (118,140 against
+//     7,508), and one block a tile left it on the tail.
+// On the bench round: 2.262 ms against the first version's 7.402 ms in the
+// same run, counts exact, flux 2.5e-7 from the plain twin summed in
+// float64 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6,
+// scripts/perf_deposit_kernels.py).  The TPU-only parts do not carry
+// over: the 128-aligned DMA fetch with its lane mask (here a 16-byte-aligned
+// copy and zero normals on the head and tail lanes), the Dp - chunk clip
+// and the flattened scalar-prefetch operands.
 
 #include <cuda_runtime.h>
 
-#include "deposit_pair.cuh"
+#include "deposit_stage.cuh"
 
 namespace {
 
-constexpr int kStage = 512;
+// Tile i's K windows, clipped to the deposit array.
+struct TileWindows {
+  const int* __restrict__ sk;
+  const int* __restrict__ ek;
+  int n_windows;
+  long long dp;
 
-__global__ void deposit_tile_kernel(const int* __restrict__ sk,
-                                    const int* __restrict__ ek, int n_windows,
-                                    const float* __restrict__ packed,
-                                    const float* __restrict__ dep, long long dp,
-                                    float* __restrict__ out) {
-  __shared__ float sd[9][kStage];
-
-  const int tile = blockIdx.x;
-  const long long slot = (long long)tile * blockDim.x + threadIdx.x;
-  const rt3::HitSlot h = rt3::load_slot(packed + slot * 8);
-
-  float cnt = 0.0f, f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-  for (int k = 0; k < n_windows; ++k) {
-    // Clipped to the deposit array, so no interval reads outside it.
-    const int s = max(sk[tile * n_windows + k], 0);
-    const int e = (int)min((long long)ek[tile * n_windows + k], dp);
-    rt3::accumulate_lanes<kStage>(sd, dep, dp, s, e, h, cnt, f0, f1, f2);
+  __device__ int count() const { return n_windows; }
+  __device__ void get(int k, long long& a, long long& b) const {
+    const long long i = (long long)blockIdx.x * n_windows + k;
+    a = max(sk[i], 0);
+    b = min((long long)ek[i], dp);
   }
-  rt3::store_row(out + slot * 8, cnt, f0, f1, f2);
+};
+
+__global__ void __launch_bounds__(rt3::kMaxThreads, rt3::kMinBlocks)
+deposit_tile_kernel(const int* __restrict__ sk, const int* __restrict__ ek, int n_windows,
+                    int tile, int splits, const float* __restrict__ packed,
+                    const float* __restrict__ dep, long long dp,
+                    float4* __restrict__ scratch, long long c_pad) {
+  const TileWindows src{sk, ek, n_windows, dp};
+  rt3::deposit_tile_over(src, tile, splits, packed, dep, dp, scratch, c_pad);
 }
 
 }  // namespace
 
-extern "C" int rt3_deposit_tile(const int* sk, const int* ek, int n_tiles,
-                                int n_windows, int tile, const float* packed,
-                                const float* dep, long long dp, float* out,
-                                void* stream) {
-  deposit_tile_kernel<<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
-      sk, ek, n_windows, packed, dep, dp, out);
-  return (int)cudaGetLastError();
+// threads, splits, gsplits, smem: the launch geometry (deposit_stage.cuh);
+// scratch: (gsplits, c_pad, 4) f32 for the grid splits' partial sums.
+extern "C" int rt3_deposit_tile(const int* sk, const int* ek, int n_tiles, int n_windows,
+                                int tile, const float* packed, const float* dep,
+                                long long dp, float* out, int threads, int splits,
+                                int gsplits, int smem, float* scratch, void* stream) {
+  const long long c_pad = (long long)n_tiles * tile;
+  float4* part = reinterpret_cast<float4*>(scratch);
+  return rt3::launch_deposit(deposit_tile_kernel, n_tiles, tile, threads, splits, gsplits,
+                             smem, c_pad, out, part, (cudaStream_t)stream, sk, ek, n_windows,
+                             tile, splits, packed, dep, dp, part, c_pad);
 }

@@ -48,15 +48,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` once per content hash (the source, the
-    shared ``csrc/*.cuh`` headers and the flags); return the library.
+def build(source: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """Compile ``<csrc_dir>/<source>`` once per content hash (the source,
+    the directory's ``*.cuh`` headers and the flags); return the library.
 
     The ptxas report (registers, shared memory, spills) is kept beside the
     library as ``<name>.ptxas.txt``.
     """
-    src = CSRC_DIR / source
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    src = Path(csrc_dir) / source
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
@@ -76,19 +76,22 @@ class CudaKernel:
     """One C entry point of one source, loaded at first launch.
 
     ``launches`` counts successful launches; only :meth:`launch` adds to it.
+    ``csrc_dir`` goes to :func:`build` (a comparison script loads another
+    tree's sources this way).
     """
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes, csrc_dir: Path = CSRC_DIR):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.csrc_dir = csrc_dir
         self.launches = 0
         self._lib = None
         self._fn = None
 
     def load(self):
         if self._fn is None:
-            self._lib = ctypes.CDLL(str(build(self.source)))
+            self._lib = ctypes.CDLL(str(build(self.source, self.csrc_dir)))
             fn = getattr(self._lib, self.symbol)
             fn.argtypes = self.argtypes + [ctypes.c_void_p]   # + stream
             fn.restype = ctypes.c_int

@@ -59,11 +59,15 @@ Y_LO = -40.0
 Y_HI = 240.0
 YQ = 8.0
 
+#: The launch geometry's arguments, after ``out``: threads, splits,
+#: gsplits, shared bytes, scratch.
+_GEOMETRY_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 KERNEL = CudaKernel("deposit_tile.cu", "rt3_deposit_tile", [
     ctypes.c_void_p, ctypes.c_void_p,                    # sk, ek
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # n_tiles, K, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
     ctypes.c_void_p,                                     # out
+    *_GEOMETRY_ARGS,
 ])
 BLOCK_KERNEL = CudaKernel("deposit_block.cu", "rt3_deposit_block", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # wt, blk, wcmp
@@ -71,7 +75,73 @@ BLOCK_KERNEL = CudaKernel("deposit_block.cu", "rt3_deposit_block", [
     ctypes.c_int, ctypes.c_int,                          # n_tiles, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
     ctypes.c_void_p,                                     # out
+    *_GEOMETRY_ARGS,
 ])
+
+#: csrc/deposit_stage.cuh's compiled constants: hit slots a thread holds
+#: (kSlotsPerThread), lanes per staged stage (kStageLanes), stages in the
+#: ring (kRing), deposit rows staged (kRows), the most threads a block
+#: (kMaxThreads) and the dynamic shared memory a block gets without opting
+#: in (kMaxSharedBytes).  The kernels refuse a geometry that does not fit
+#: them, and a CPU test reads them back from the header.
+SLOTS_PER_THREAD = 4
+STAGE_LANES = 512
+RING = 2
+STAGED_ROWS = 9
+MAX_THREADS = 256
+MAX_SHARED_BYTES = 48 * 1024
+#: Blocks per tile: the heaviest tile holds ~1% of a round's lanes (16x the
+#: mean) on the paths' rounds, and splitting every tile's stages 8 ways
+#: keeps it off the kernel's tail (PERF.md section 6).
+GRID_SPLITS = 8
+
+
+@dataclass(frozen=True)
+class DepositGeometry:
+    """Launch geometry of the tile and block deposit kernels for one tile
+    size (csrc/deposit_stage.cuh): ``slot_threads`` = ceil(tile / R)
+    threads each hold R slots (thread q: slots q + k slot_threads, k < R),
+    ``splits`` such groups share a block and split the lanes of every stage
+    among them, and ``gsplits`` = GRID_SPLITS blocks per tile split the
+    tile's stages."""
+
+    tile: int
+    slot_threads: int
+    splits: int
+    gsplits: int
+    threads: int
+    shared_bytes: int
+
+    def slots_of(self, thread: int) -> list[int]:
+        """The tile slots ``thread`` accumulates (the kernel's mapping)."""
+        q = thread % self.slot_threads
+        return [s for s in range(q, self.slot_threads * SLOTS_PER_THREAD, self.slot_threads)
+                if s < self.tile]
+
+    def split_of(self, thread: int) -> int:
+        return thread // self.slot_threads
+
+
+def deposit_geometry(tile: int) -> DepositGeometry:
+    """The geometry for ``tile`` (1..1024) slots: as many lane splits as
+    fit in ``MAX_THREADS`` threads, and shared memory for the staging ring
+    or, if larger, the splits' partial sums."""
+    if not 1 <= tile <= 1024:
+        raise ValueError(f"tile {tile} is not in 1..1024")
+    q = -(-tile // SLOTS_PER_THREAD)
+    splits = max(1, MAX_THREADS // q)
+    ring = RING * STAGED_ROWS * STAGE_LANES * 4
+    partial_sums = (splits - 1) * tile * 16          # one float4 a slot and split
+    return DepositGeometry(tile, q, splits, GRID_SPLITS, q * splits, max(ring, partial_sums))
+
+
+def _geometry_args(tile: int, c_pad: int, dev: torch.device):
+    """(C arguments, scratch tensor to keep alive) of the launch geometry
+    for ``tile``: the grid splits' partial sums go to scratch."""
+    geom = deposit_geometry(tile)
+    scratch = torch.empty((geom.gsplits, c_pad, 4), dtype=torch.float32, device=dev)
+    args = (geom.threads, geom.splits, geom.gsplits, geom.shared_bytes, ptr(scratch))
+    return args, scratch
 
 
 def interval_pairs(tile_of: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -108,19 +178,22 @@ def interval_pairs(tile_of: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 
 def intervals_plain(tile_of, lo, hi, packed: torch.Tensor, dep_packed: torch.Tensor,
-                 n_tiles: int, pairs_per_step: int) -> torch.Tensor:
+                 n_tiles: int, pairs_per_step: int,
+                 sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Count (col 0) and raw RGB flux (cols 1:4) per hit slot over the
-    intervals' pair tests; (c_pad, 8), zero where no interval reaches."""
+    intervals' pair tests; (c_pad, 8), zero where no interval reaches.
+    The flux is summed in ``sum_dtype`` (float64: each slot's sum rounded to
+    float32 once, a witness for how far float32 summation orders stray)."""
     c_pad = packed.shape[0]
     t = c_pad // n_tiles
     dev = packed.device
     cnt = torch.zeros((n_tiles, t), dtype=torch.float32, device=dev)
-    flux = torch.zeros((3, n_tiles, t), dtype=torch.float32, device=dev)
+    flux = torch.zeros((3, n_tiles, t), dtype=sum_dtype, device=dev)
     for tile, _, d, m in interval_pairs(tile_of, lo, hi, packed.reshape(n_tiles, t, 8),
                                         dep_packed, pairs_per_step):
         cnt.index_add_(0, tile, m)
         for c in range(3):
-            flux[c].index_add_(0, tile, m * d[6 + c, :, None])
+            flux[c].index_add_(0, tile, (m * d[6 + c, :, None]).to(sum_dtype))
     out = torch.zeros((c_pad, 8), dtype=torch.float32, device=dev)
     out[:, 0] = cnt.reshape(-1)
     out[:, 1:4] = flux.reshape(3, -1).T
@@ -128,19 +201,19 @@ def intervals_plain(tile_of, lo, hi, packed: torch.Tensor, dep_packed: torch.Ten
 
 
 def deposit_tile_plain(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
-                       dep_packed: torch.Tensor,
-                       pairs_per_step: int = 1 << 22) -> torch.Tensor:
+                       dep_packed: torch.Tensor, pairs_per_step: int = 1 << 22,
+                       sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's contract in plain PyTorch, over tiles in steps.
 
     The (tile, deposit lane) items of all intervals are enumerated in
     order (tile, window, lane) and tested against the item's tile in
     steps of ``pairs_per_step // tile`` items, so a whole bench round fits
-    in memory on the card.
+    in memory on the card.  ``sum_dtype``: see :func:`intervals_plain`.
     """
     n_tiles, K = sk.shape
     tile_of = torch.arange(n_tiles, device=sk.device).repeat_interleave(K)
     return intervals_plain(tile_of, sk.reshape(-1), ek.reshape(-1), packed,
-                        dep_packed, n_tiles, pairs_per_step)
+                        dep_packed, n_tiles, pairs_per_step, sum_dtype)
 
 
 def _deposit_tile_cuda(sk, ek, packed, dep_packed):
@@ -156,8 +229,10 @@ def _deposit_tile_cuda(sk, ek, packed, dep_packed):
         raise ValueError(f"c_pad {c_pad} is not n_tiles {n_tiles} tiles of "
                          "1..1024 slots")
     out = torch.empty((c_pad, 8), dtype=torch.float32, device=dev)
+    gargs, scratch = _geometry_args(tile, c_pad, dev)
     KERNEL.launch(dev, ptr(sk), ptr(ek), n_tiles, K, tile, ptr(packed),
-                  ptr(dep_packed), dep_packed.shape[1], ptr(out))
+                  ptr(dep_packed), dep_packed.shape[1], ptr(out), *gargs)
+    del scratch     # the stream orders its reuse after the kernel
     return out
 
 
@@ -179,16 +254,18 @@ def deposit_tile(sk: torch.Tensor, ek: torch.Tensor, packed: torch.Tensor,
 
 def deposit_block_plain(wt: torch.Tensor, blk: torch.Tensor, wcmp: torch.Tensor,
                         packed: torch.Tensor, dep_packed: torch.Tensor, tile: int,
-                        wchunk: int, pairs_per_step: int = 1 << 22) -> torch.Tensor:
+                        wchunk: int, pairs_per_step: int = 1 << 22,
+                        sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel #5's contract in plain PyTorch: count (col 0) and raw RGB flux
     (cols 1:4) per hit slot of tile ``wt[s]`` over the whole deposit block
     ``blk[s]`` (lanes [blk wchunk, (blk + 1) wchunk)) of every item with
-    ``wcmp[s] != 0``; tiles no item names read 0."""
+    ``wcmp[s] != 0``; tiles no item names read 0.  ``sum_dtype``: see
+    :func:`intervals_plain`."""
     on = wcmp != 0
     lo = blk.long()[on] * wchunk
     hi = torch.clamp_max(lo + wchunk, dep_packed.shape[1])
     return intervals_plain(wt.long()[on], lo, hi, packed, dep_packed,
-                           packed.shape[0] // tile, pairs_per_step)
+                           packed.shape[0] // tile, pairs_per_step, sum_dtype)
 
 
 def _deposit_block_cuda(wt, blk, wcmp, packed, dep_packed, tile, wchunk):
@@ -205,8 +282,11 @@ def _deposit_block_cuda(wt, blk, wcmp, packed, dep_packed, tile, wchunk):
     if wchunk < 1 or dep_packed.shape[1] % wchunk:
         raise ValueError(f"Dp {dep_packed.shape[1]} is not whole blocks of {wchunk} lanes")
     out = torch.empty((c_pad, 8), dtype=torch.float32, device=dev)
+    gargs, scratch = _geometry_args(tile, c_pad, dev)
     BLOCK_KERNEL.launch(dev, ptr(wt), ptr(blk), ptr(wcmp), W, wchunk, c_pad // tile,
-                        tile, ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+                        tile, ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out),
+                        *gargs)
+    del scratch     # the stream orders its reuse after the kernel
     return out
 
 

@@ -19,9 +19,11 @@ import torch
 
 from raytrace3_tpu_torch.core.types import Deposits, HitPoints
 from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
+from raytrace3_tpu_torch.ops.cuda_build import ptr
 from raytrace3_tpu_torch.ops.deposit_kernel import (DepositBlock, DepositTile,
                                                     deposit_block, deposit_block_plain,
-                                                    deposit_tile, deposit_tile_plain)
+                                                    deposit_geometry, deposit_tile,
+                                                    deposit_tile_plain)
 from raytrace3_tpu_torch.ops.lane_kernel import (DepositLane, DepositStream,
                                                  deposit_lane, deposit_lane_bwd,
                                                  deposit_lane_bwd_plain,
@@ -116,6 +118,128 @@ def test_deposit_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     with pytest.raises(TypeError):
         deposit_tile(sk.long(), ek, packed, dep_packed)
+
+
+def _assert_deposit_equal(got, want):
+    """Counts exact, flux to rtol 1e-5 (summation order only)."""
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _box_slots_and_lanes(rng, c_pad, Dp, device, dep_offset=0):
+    """Hit slots and deposit lanes in one 6-unit box (a few % of pairs
+    pass), every 7th slot padding (r2 = -1); ``dep_packed`` is (16, Dp),
+    contiguous, starting ``dep_offset`` floats into its storage."""
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)
+    packed = np.zeros((c_pad, 8), np.float32)
+    packed[:, :3] = rng.uniform(0, 6, (c_pad, 3))
+    packed[:, 3:6] = unit(rng.normal(size=(c_pad, 3)))
+    packed[:, 6] = rng.uniform(0.5, 2.0, c_pad)
+    packed[::7, 6] = -1.0
+    dep = np.zeros((16, Dp), np.float32)
+    dep[0:3] = rng.uniform(0, 6, (3, Dp))
+    dep[3:6] = unit(rng.normal(size=(Dp, 3))).T
+    dep[6:9] = rng.uniform(0, 5, (3, Dp))
+    store = torch.zeros(16 * Dp + dep_offset, dtype=torch.float32, device=device)
+    dep_packed = store[dep_offset:].view(16, Dp)
+    dep_packed.copy_(torch.as_tensor(dep))
+    return torch.as_tensor(packed, device=device), dep_packed
+
+
+def _ragged_intervals(rng, n_tiles, K, Dp, device):
+    """(n_tiles, K) intervals inside [0, Dp) starting at every residue mod
+    4: empty ones (e = s and e < s), one-lane ones, short ones, long ones
+    crossing several 512-lane stages (so several of a tile's 8 blocks take
+    stages), and one ending at Dp."""
+    s = rng.integers(0, Dp, (n_tiles, K))
+    length = rng.choice([0, 1, 2, 3, 5, 17, 511, 513, 1500], (n_tiles, K))
+    e = np.minimum(s + length, Dp)
+    e[0, 0] = max(int(s[0, 0]) - 3, 0)          # e < s
+    s[1 % n_tiles, 0], e[1 % n_tiles, 0] = Dp - 1, Dp
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)
+    return i32(s), i32(e)
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 256, 1000, 1001])
+@pytest.mark.parametrize("dp, offset", [(4096, 0), (4001, 0), (4096, 1)])
+def test_tile_kernel_ragged_shapes(cuda_device, tile, dp, offset):
+    """Kernel #2 at tiles that are no multiple of 4 slots or of a warp,
+    over intervals at every lane residue mod 4, empty and one-lane ones;
+    with Dp or the deposit array off 16-byte alignment (4-byte copies)."""
+    rng = np.random.default_rng(tile + dp + offset)
+    n_tiles, K = 6, 5
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device, offset)
+    sk, ek = _ragged_intervals(rng, n_tiles, K, dp, cuda_device)
+    want = deposit_tile_plain(sk, ek, packed, dep_packed)
+    assert float(want[:, 0].sum()) > 100
+    before = deposit_kernel.KERNEL.launches
+    _assert_deposit_equal(deposit_tile(sk, ek, packed, dep_packed), want)
+    torch.cuda.synchronize()
+    assert deposit_kernel.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 1000, 1001])
+def test_block_kernel_under_a_cut_cap(cuda_device, tile):
+    """Kernel #5 at ragged tiles on a work list cut inside a tile's run of
+    items, with every third computing item switched off (wcmp = 0): the
+    straddling tile keeps its partial sums, the tiles beyond the cut read
+    0, and everything matches the plain twin."""
+    hp, dep = _wall_case(np.random.default_rng(4), 20000, 200000, cuda_device)
+    pd = DepositBlock(tile=tile, wchunk=128, work_cap=1 << 20, x_lo=-8.0, x_hi=48.0,
+                      y_lo=-8.0, y_hi=88.0)
+    prep = pd.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // tile
+    dkeys, dep_packed, Dp = pd._dep_sorted(dep, pd.wchunk)
+    wt, blk, wcmp, overflow, total = pd.work_list(prep, dkeys, n_tiles, Dp)
+    assert int(overflow) == 0
+    wcmp = wcmp.clone()
+    wcmp[torch.nonzero(wcmp).flatten()[::3]] = 0
+    # The cut: one item into the run of a tile in the middle of the list
+    # that has at least three computing items.
+    per_tile = torch.bincount(wt.long()[wcmp != 0], minlength=n_tiles)
+    first = torch.searchsorted(wt, torch.arange(n_tiles, dtype=torch.int32,
+                                                device=cuda_device))
+    cands = torch.nonzero(per_tile >= 3).flatten()
+    cut = int(cands[len(cands) // 2])
+    W = int(first[cut]) + 2
+    args = (wt[:W].contiguous(), blk[:W].contiguous(), wcmp[:W].contiguous(), packed,
+            dep_packed, tile, pd.wchunk)
+    want = deposit_block_plain(*args)
+    rows = want.reshape(n_tiles, tile, 8)
+    assert float(rows[cut + 1:].abs().sum()) == 0.0 and float(rows[:cut, :, 0].sum()) > 1000
+    got = deposit_block(*args)
+    torch.cuda.synchronize()
+    _assert_deposit_equal(got, want)
+    assert float(got.reshape(n_tiles, tile, 8)[cut + 1:].abs().sum()) == 0.0
+
+
+def test_deposit_kernels_refuse_a_foreign_geometry(cuda_device):
+    """The tile kernel launches with deposit_geometry's launch geometry and
+    refuses any other (a thread short, a lane split more, too little shared
+    memory) with cudaErrorInvalidValue (1), so that a geometry the compiled
+    constants do not cover never runs."""
+    rng = np.random.default_rng(0)
+    tile, n_tiles, K, dp = 96, 3, 4, 2048
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device)
+    sk, ek = _ragged_intervals(rng, n_tiles, K, dp, cuda_device)
+    g = deposit_geometry(tile)
+    out = torch.empty((n_tiles * tile, 8), dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty((g.gsplits, n_tiles * tile, 4), dtype=torch.float32,
+                          device=cuda_device)
+    launch = lambda *geom: deposit_kernel.KERNEL.launch(
+        cuda_device, ptr(sk), ptr(ek), n_tiles, K, tile, ptr(packed), ptr(dep_packed), dp,
+        ptr(out), *geom, ptr(scratch))
+    launch(g.threads, g.splits, g.gsplits, g.shared_bytes)
+    torch.cuda.synchronize()
+    _assert_deposit_equal(out, deposit_tile_plain(sk, ek, packed, dep_packed))
+    for bad in [(g.threads - 1, g.splits, g.gsplits, g.shared_bytes),
+                (g.threads + g.slot_threads, g.splits + 1, g.gsplits, g.shared_bytes),
+                (g.threads, g.splits, g.gsplits, g.shared_bytes - 4),
+                (g.threads, g.splits, 0, g.shared_bytes)]:
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            launch(*bad)
 
 
 #: (hit points, deposits): a small case and the train path's sizes

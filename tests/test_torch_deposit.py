@@ -11,6 +11,9 @@ order differs between a matmul, a sorted lane walk and JAX's sort, whose
 order among equal keys is unspecified).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,6 +124,70 @@ def test_plain_step_size_does_not_change_the_result(rng):
     np.testing.assert_array_equal(deposit_tile(sk, ek, packed, dep_packed).numpy(),
                                   a.numpy())
     assert deposit_kernel.KERNEL.launches == before
+
+
+def test_launch_geometry_covers_every_slot_once():
+    """The tile and block kernels' launch geometry for every tile the
+    wrappers take (1..1024): within each lane split every slot of the tile
+    is one thread's exactly once, the block fits the kernels' thread bound,
+    and shared memory holds the staging ring and the splits' partial sums
+    within the 48 KB a block gets without opting in (an H100 block may opt
+    in to 227 KB)."""
+    for tile in range(1, 1025):
+        g = deposit_kernel.deposit_geometry(tile)
+        assert g.gsplits == deposit_kernel.GRID_SPLITS
+        assert g.threads == g.slot_threads * g.splits
+        assert 1 <= g.threads <= deposit_kernel.MAX_THREADS
+        assert g.shared_bytes <= deposit_kernel.MAX_SHARED_BYTES <= 227 * 1024
+        assert g.shared_bytes >= max(
+            deposit_kernel.RING * deposit_kernel.STAGED_ROWS * deposit_kernel.STAGE_LANES * 4,
+            (g.splits - 1) * tile * 16)
+        for p in range(g.splits):
+            threads = range(p * g.slot_threads, (p + 1) * g.slot_threads)
+            assert {g.split_of(t) for t in threads} == {p}
+            slots = [s for t in threads for s in g.slots_of(t)]
+            assert sorted(slots) == list(range(tile))
+    with pytest.raises(ValueError):
+        deposit_kernel.deposit_geometry(1025)
+
+
+def test_launch_geometry_constants_match_the_header():
+    """The wrapper's copies of csrc/deposit_stage.cuh's constants are the
+    header's (the kernels refuse any other geometry at launch)."""
+    header = (Path(deposit_kernel.__file__).parent.parent / "csrc" /
+              "deposit_stage.cuh").read_text()
+    consts = {name: eval(expr, {}) for name, expr in
+              re.findall(r"constexpr int (k\w+) = ([\d *]+);", header)}
+    want = {
+        "kSlotsPerThread": deposit_kernel.SLOTS_PER_THREAD,
+        "kStageLanes": deposit_kernel.STAGE_LANES,
+        "kRing": deposit_kernel.RING,
+        "kRows": deposit_kernel.STAGED_ROWS,
+        "kMaxThreads": deposit_kernel.MAX_THREADS,
+        "kMinBlocks": 2,
+        "kMaxTile": 1024,
+        "kMaxSharedBytes": deposit_kernel.MAX_SHARED_BYTES,
+    }
+    assert {name: consts.get(name) for name in want} == want
+
+
+def test_float64_sums_keep_the_plain_twin(rng):
+    """The plain twin with its flux summed in float64 has the same counts
+    and, to float32 rounding, the same flux."""
+    hp, dep = _wall_case(rng)
+    php, pdep = _port(hp, dep)
+    pd = DepositTile(tile=32, chunk=128, **KW)
+    prep = pd.prepare(php)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(php.valid, php.r2, -1.0)
+    dkeys, dep_packed, _ = pd._dep_sorted(pdep, 128)
+    sk, ek = pd._window_lanes(prep, dkeys, packed.shape[0] // 32)
+    sk, ek = sk.int(), ek.int()
+    a = deposit_tile_plain(sk, ek, packed, dep_packed)
+    b = deposit_tile_plain(sk, ek, packed, dep_packed, sum_dtype=torch.float64)
+    assert b.dtype == torch.float32 and float(a[:, 0].sum()) > 0
+    np.testing.assert_array_equal(b[:, 0].numpy(), a[:, 0].numpy())
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_packed_rounds_match_hp_space(rng):
