@@ -21,8 +21,11 @@ with a non-zero exit when it fails:
 
   1. the card's name and power limit; build the six kernels, in parallel;
   2. the Newton kernel against its plain PyTorch twin on the teapot-bound
-     rays of one photon segment at bench shapes (and the time of the
-     default solver, ``solve_winner``, on the same rays);
+     rays of one photon segment at bench shapes, bit for bit, with the open
+     (ray, patch) pairs, the rays a block and the queue drains, and its
+     bound counted per (ray, patch) beside the first version's per-lane
+     count (and the time of the default solver, ``solve_winner``, on the
+     same rays);
   3. the tile deposit kernel against its plain twin on one bench round
      (14 x 131072 deposits against the 512^2 hit-point layout), the flux
      held to the twin summed in float64, with its launch geometry, the
@@ -55,13 +58,18 @@ with a non-zero exit when it fails:
      the launch counters read around it; then a 64^2 render on the card
      resumed from a one-pass checkpoint against the same render run
      straight;
- 12. the stream deposit kernel (#6) against its plain twin and the coarse-z
-     ``DepositZTile`` against ``DepositTile`` on phase 3's bench round, and
-     one 512^2 pass through ``make_pass_fn`` with ``DepositStream``.
+ 12. the stream deposit kernel (#6) against its plain twin (held to the twin
+     summed in float64, with its launch geometry, as phases 3 and 10) and the
+     coarse-z ``DepositZTile`` against ``DepositTile`` on phase 3's bench
+     round, and one 512^2 pass through ``make_pass_fn`` with
+     ``DepositStream``.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits non-zero before printing either.  It imports no JAX.
+A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
+launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
+which adds the host's share the device waits for.  The second-to-last
+line is a JSON object with one entry per kernel; the last is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+non-zero before printing either.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -137,11 +145,20 @@ PEAK_BYTES = 3.35e12
 #: 5 for ndot, 2 compares) and per pair taken (4 adds forward, 3 backward).
 PAIR_OPS, TAKEN_OPS_FWD, TAKEN_OPS_BWD = 15, 4, 3
 #: fp32 operations of the Newton kernel (csrc/newton.cu), counted from the
-#: source: per (ray, patch, restart) lane the patch box and slab test; per
-#: lane that passes it the start (one patch evaluation and t0) and per
-#: iteration two patch evaluations (one with derivatives), the Cramer step,
-#: the clamps and the acceptance test.
-NEWTON_GATE_OPS, NEWTON_START_OPS, NEWTON_ITER_OPS = 120, 150, 543
+#: source: per patch its box (45 min and 45 max, once, as the TPU kernel's
+#: table), per ray its three reciprocals, per (ray, patch) pair the slab test
+#: (6 subtractions, 6 products, 6 NaN tests, 6 min/max for the slabs, 4 for
+#: tnear and tfar, the clamp at 0 and the compare); per (pair, restart) lane
+#: whose box opens, the start (one patch evaluation, 142, and t0, 8) and per
+#: iteration a patch evaluation with derivatives (316), the Cramer step (63),
+#: the clamps (24), a patch evaluation (142), the residual (14) and the
+#: acceptance test (7).
+NEWTON_BOX_OPS, NEWTON_RAY_OPS, NEWTON_PAIR_OPS = 90, 3, 30
+NEWTON_START_OPS, NEWTON_ITER_OPS = 150, 566
+#: The first version's count: the box and slab test on every (ray,
+#: patch, restart) lane, 543 operations an iteration; printed beside the
+#: new one.
+NEWTON_V1_GATE_OPS, NEWTON_V1_ITER_OPS = 120, 543
 #: Phase 11: the CLI's passes at the reference1024 preset, and the card's
 #: resume check: a 64^2 render resumed from a one-pass checkpoint against
 #: the same render run straight.  The walks are deterministic on the card;
@@ -164,7 +181,10 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """Median time of ``fn()`` over ``reps`` runs, by CUDA events around
+    each call: for a kernel wrapper, the device's time plus whatever of the
+    host's checks, allocations and launch the device waits for (a
+    kernel's ``call_ms``)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -179,22 +199,61 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+#: Launches a kernel's device time is taken over (``device_ms``).
+GRAPH_LAUNCHES = 10
+
+
+def device_ms(fn, launches: int = GRAPH_LAUNCHES, reps: int = 5) -> float:
+    """A kernel wrapper's device time: ``launches`` calls of ``fn`` captured
+    in a CUDA graph after a warm call, the graph replayed ``reps`` times
+    between CUDA events; the median over the launches.  The host's work
+    stays out of the replays, so this is the kernels' own time (the
+    deposits' ``combine_partials`` included)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def kernel_times(fn) -> tuple[float, float]:
+    """(device ms, call ms) of a kernel wrapper ``fn``."""
+    return device_ms(fn), cuda_ms(fn)
+
+
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(least ms the card could take, what binds it)."""
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, ops, nbytes) -> dict:
+def kernel_row(name, source, replaces, err, times, plain_ms, ops, nbytes) -> dict:
+    """A kernel's entry of the ``kernels`` line; ``times`` is
+    ``kernel_times``'s (device ms, call ms)."""
     bound_ms, bound_by = bound(ops, nbytes)
+    ms, call_ms = times
     return dict(name=name, route="cuda", source=f"raytrace3_tpu_torch/csrc/{source}",
-                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                replaces=replaces, max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def make_pass(settings: dict, device, deposit=None):
+def make_pass(settings: dict, device, deposit=None, newton_fn=None):
     """(cfg, scene, pass function) of ``settings``; ``deposit(bounds)``
-    builds the deposit (default: the bench's tile deposit)."""
+    builds the deposit (default: the bench's tile deposit), ``newton_fn``
+    solves the Bezier intersections (default: the Newton kernel's)."""
     from raytrace3_tpu_torch.ops.deposit_kernel import (make_tile_deposit,
                                                         world_bounds_from_scene)
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
@@ -207,7 +266,7 @@ def make_pass(settings: dict, device, deposit=None):
     xy = {k: b[k] for k in BOUNDS}
     depo = deposit(xy) if deposit is not None else make_tile_deposit(tile=TILE, **xy)
     fn = make_pass_fn(scene, cfg, BASE, LOOK, deposit_fn=depo,
-                      newton_fn=make_newton(cfg.newton_iters, RESTARTS))
+                      newton_fn=newton_fn or make_newton(cfg.newton_iters, RESTARTS))
     return cfg, scene, fn
 
 
@@ -301,8 +360,8 @@ def phase_build(card: str) -> None:
 
 def phase_newton(card: str, device) -> dict:
     """Kernel vs plain on the Newton inputs of one photon segment."""
-    from raytrace3_tpu_torch.geometry.aabb import aabb_from_points, slab_test
-    from raytrace3_tpu_torch.ops.newton_kernel import solve, solve_plain
+    from raytrace3_tpu_torch.ops.newton_kernel import (RAYS_PER_BLOCK, drain_schedule,
+                                                       open_pairs, solve, solve_plain)
     from raytrace3_tpu_torch.render.driver import build_scene
     from raytrace3_tpu_torch.render.photon import photon_trace_regen
     from raytrace3_tpu_torch.utils.config import RenderConfig
@@ -329,12 +388,13 @@ def phase_newton(card: str, device) -> dict:
     pid_mismatch = int((both & (got[3] != want[3])).sum())
     err = max(float((g - w)[both].abs().max()) if bool(both.any()) else 0.0
               for g, w in zip(got[:3], want[:3]))
-    ms = cuda_ms(lambda: solve(org, dir, ctrl, cfg.newton_iters, RESTARTS))
+    times = kernel_times(lambda: solve(org, dir, ctrl, cfg.newton_iters, RESTARTS))
     plain_ms = cuda_ms(lambda: solve_plain(org, dir, ctrl, cfg.newton_iters, RESTARTS), 3)
     print(f"[2] newton: {org.shape[0]} rays x {ctrl.shape[0]} patches x {RESTARTS} restarts; "
           f"hits {int(hit_w.sum())}, hit mismatches {mismatch}, pid mismatches "
           f"{pid_mismatch}, max |dt, du, dv| on common hits {err:.3g}")
-    print(f"[2] newton: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    print(f"[2] newton: kernel {times[0]:.4f} ms device, {times[1]:.4f} ms a call, plain "
+          f"{plain_ms:.3f} ms ({card})")
     # The solver the port takes without --pallas: not a kernel, timed for
     # the record beside it.
     from raytrace3_tpu_torch.geometry.bezier import solve_winner
@@ -349,15 +409,26 @@ def phase_newton(card: str, device) -> dict:
     if mismatch or pid_mismatch or not err <= NEWTON_ATOL or int(hit_w.sum()) == 0:
         raise SystemExit("phase 2 failed: the Newton kernel disagrees with its plain twin")
     R, B = org.shape[0], ctrl.shape[0]
-    pmin, pmax = aabb_from_points(ctrl.reshape(B, 16, 3))
-    open_lanes = int(slab_test(org[:, None], dir[:, None], pmin[None], pmax[None]).sum()) * RESTARTS
-    ops = (R * B * RESTARTS * NEWTON_GATE_OPS
-           + open_lanes * (NEWTON_START_OPS + cfg.newton_iters * NEWTON_ITER_OPS))
+    gate = open_pairs(org, dir, ctrl)
+    open_lanes = int(gate.sum()) * RESTARTS
+    sched = drain_schedule(gate, RESTARTS)
+    lane_ops = open_lanes * (NEWTON_START_OPS + cfg.newton_iters * NEWTON_ITER_OPS)
+    ops = B * NEWTON_BOX_OPS + R * NEWTON_RAY_OPS + R * B * NEWTON_PAIR_OPS + lane_ops
+    ops_v1 = (R * B * RESTARTS * NEWTON_V1_GATE_OPS + open_lanes
+              * (NEWTON_START_OPS + cfg.newton_iters * NEWTON_V1_ITER_OPS))
     nbytes = R * 24 + B * 48 * 4 + R * 17
-    print(f"[2] newton: {open_lanes} of {R * B * RESTARTS} lanes pass the patch box; "
-          f"{ops / 1e9:.3f} G fp32 operations")
+    print(f"[2] newton: {open_lanes} of {R * B * RESTARTS} lanes pass the patch box "
+          f"({int(gate.sum())} of {R * B} (ray, patch) pairs); {RAYS_PER_BLOCK} rays a block, "
+          f"{sched['blocks']} blocks ({sched['blocks_without_newton']} run no Newton), "
+          f"{sched['drains']} queue drains in {sched['steps']} Newton steps, "
+          f"{sched['lane_fill']:.3f} of their lanes open")
     row = kernel_row("newton", "newton.cu", "raytrace3_tpu/ops/newton_pallas.py:122",
-                     err, ms, plain_ms, ops, nbytes)
+                     err, times, plain_ms, ops, nbytes)
+    v1_ms, _ = bound(ops_v1, nbytes)
+    print(f"[2] newton: {ops / 1e9:.4f} G fp32 operations, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); the first version's count (every lane gated) "
+          f"{ops_v1 / 1e9:.4f} G, bound {v1_ms:.5f} ms; kernel at "
+          f"{row['ms'] / row['bound_ms']:.1f}x the bound ({card})")
     row["_round"] = deps
     return row
 
@@ -403,20 +474,21 @@ def phase_deposit(card: str, device, deps) -> dict:
     want = deposit_tile_plain(sk, ek, packed, dep_packed)
     want64 = deposit_tile_plain(sk, ek, packed, dep_packed, sum_dtype=torch.float64)
     pairs = int((ek - sk).sum()) * TILE
-    ms = cuda_ms(lambda: deposit_tile(sk, ek, packed, dep_packed))
+    times = kernel_times(lambda: deposit_tile(sk, ek, packed, dep_packed))
     plain_ms = cuda_ms(lambda: deposit_tile_plain(sk, ek, packed, dep_packed), 3)
     print(f"[3] deposit: {int(deps.valid.sum())} valid of {deps.pos.shape[0]} deposits, "
           f"{int(st['count'])} hit points in {n_tiles} tiles of {TILE}, "
           f"{pairs / 1e9:.3f} G pair tests; pairs found {int(want[:, 0].sum())}")
     cnt_mismatch, rel, err = compare_deposit_witnessed(3, got, want, want64)
-    print(f"[3] deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    print(f"[3] deposit: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, plain "
+          f"{plain_ms:.3f} ms ({card})")
     if cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or int(want[:, 0].sum()) == 0:
         raise SystemExit("phase 3 failed: the deposit kernel disagrees with its plain twin")
     taken = float(want[:, 0].sum())
     c_pad, Dp = packed.shape[0], dep_packed.shape[1]
     nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * sk.numel() * 4
     row = kernel_row("deposit_tile", "deposit_tile.cu",
-                     "raytrace3_tpu/ops/deposit_pallas.py:862", err, ms, plain_ms,
+                     "raytrace3_tpu/ops/deposit_pallas.py:862", err, times, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
     print_geometry(3, deposit_geometry(TILE), (ek - sk).clamp_min(0).sum(1), row, card)
     return row
@@ -550,7 +622,7 @@ def phase_lane(card: str, r: dict) -> dict:
     _, _, _, _, _, _, total = depo._build_items(r["sk"], r["ek"], r["n_tiles"], depo.work_cap,
                                                 r["Dp"], 128)
     _, _, kernel_overflow = depo._kernel_call(packed, r["deps"], r["prep"])
-    ms = cuda_ms(lambda: deposit_lane(lo, hi, wa, wb, packed, dep_packed))
+    times = kernel_times(lambda: deposit_lane(lo, hi, wa, wb, packed, dep_packed))
     plain_ms = cuda_ms(lambda: deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed), 3)
     print(f"[6] lane deposit: {int(r['deps'].valid.sum())} valid of {r['deps'].pos.shape[0]} "
           f"deposits, {r['hp_count']} hit points in {r['n_tiles']} tiles of {depo.tile}; "
@@ -558,14 +630,15 @@ def phase_lane(card: str, r: dict) -> dict:
           f"{pairs / 1e9:.3f} G pair tests; pairs found {int(taken)}")
     print(f"[6] lane deposit: count mismatches {cnt_mismatch}, max relative flux error "
           f"{rel:.3g}, overflow {int(overflow)} / kernel path {int(kernel_overflow)}")
-    print(f"[6] lane deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    print(f"[6] lane deposit: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
+          f"plain {plain_ms:.3f} ms ({card})")
     if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0
             or int(overflow) != int(kernel_overflow) or int(overflow) != 0):
         raise SystemExit("phase 6 failed: the lane deposit kernel disagrees with its plain twin")
     c_pad, Dp, W = packed.shape[0], dep_packed.shape[1], wa.shape[0]
     nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * W * 4 + 2 * r["n_tiles"] * 4
     row = kernel_row("deposit_lane", "deposit_lane.cu",
-                     "raytrace3_tpu/ops/deposit_pallas.py:530", err, ms, plain_ms,
+                     "raytrace3_tpu/ops/deposit_pallas.py:530", err, times, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
     row["_taken"] = taken
     return row
@@ -586,19 +659,20 @@ def phase_lane_bwd(card: str, r: dict, taken: float) -> dict:
     err = float((got - want).abs().max())
     run_lo, run_hi, wt, wa, wb = items
     pairs = int((wb - wa)[: int(run_hi.max())].sum()) * depo.tile
-    ms = cuda_ms(lambda: deposit_lane_bwd(*args, depo.chunk))
+    times = kernel_times(lambda: deposit_lane_bwd(*args, depo.chunk))
     plain_ms = cuda_ms(lambda: deposit_lane_bwd_plain(*args), 3)
     print(f"[7] lane backward: {int(run_hi.max())} work items of {wt.shape[0]} over "
           f"{run_lo.shape[0]} deposit chunks of {depo.chunk}, {pairs / 1e9:.3f} G pair tests; "
           f"max relative error {rel:.3g}, max |d| {err:.3g}, sum {float(want.sum()):.6g}")
-    print(f"[7] lane backward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
+    print(f"[7] lane backward: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
+          f"plain {plain_ms:.3f} ms ({card})")
     if not rel <= DEPOSIT_FLUX_RTOL or float(want.sum()) <= 0:
         raise SystemExit("phase 7 failed: the lane backward kernel disagrees with its plain twin")
     c_pad, Dp, W = packed.shape[0], dep_packed.shape[1], wt.shape[0]
     nbytes = (6 * Dp * 4 + c_pad * 8 * 4 + c_pad * 3 * 4 + 3 * Dp * 4 + 3 * W * 4
               + 2 * run_lo.shape[0] * 4)
     return kernel_row("deposit_lane_bwd", "deposit_lane_bwd.cu",
-                      "raytrace3_tpu/ops/deposit_pallas.py:1243", err, ms, plain_ms,
+                      "raytrace3_tpu/ops/deposit_pallas.py:1243", err, times, plain_ms,
                       PAIR_OPS * pairs + TAKEN_OPS_BWD * taken, nbytes)
 
 
@@ -766,15 +840,15 @@ def phase_block(card: str, device) -> dict:
     computing = int(wcmp.sum())
     pairs = computing * depo.wchunk * depo.tile
     taken = float(want[:, 0].sum())
-    ms = cuda_ms(lambda: deposit_block(*args))
+    times = kernel_times(lambda: deposit_block(*args))
     print(f"[10] block deposit at reference1024: {int(deps.valid.sum())} valid of "
           f"{deps.pos.shape[0]} deposits, {int(st['count'])} hit points (eye dropped "
           f"{int(st['dropped'])}) in {n_tiles} tiles of {depo.tile}; {int(total)} work "
           f"items needed of W = {depo.work_cap} ({computing} computing), overflow "
           f"{int(overflow)}; {pairs / 1e9:.3f} G pair tests, pairs taken {int(taken)}")
     cnt_mismatch, rel, err = compare_deposit_witnessed(10, got, want, want64)
-    print(f"[10] block deposit: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one call) "
-          f"({card})")
+    print(f"[10] block deposit: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
+          f"plain {plain_ms:.3f} ms (one call) ({card})")
     if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0 or int(overflow) != 0
             or int(st["dropped"]) != 0):
         raise SystemExit("phase 10 failed: the block deposit kernel disagrees with its "
@@ -782,7 +856,7 @@ def phase_block(card: str, device) -> dict:
     c_pad, W = packed.shape[0], wt.shape[0]
     nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 3 * W * 4
     row = kernel_row("deposit_block", "deposit_block.cu",
-                     "raytrace3_tpu/ops/deposit_pallas.py:88", err, ms, plain_ms,
+                     "raytrace3_tpu/ops/deposit_pallas.py:88", err, times, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
     items = torch.bincount(wt.long()[wcmp != 0], minlength=n_tiles)
     print_geometry(10, deposit_geometry(depo.tile), items * depo.wchunk, row, card)
@@ -854,7 +928,7 @@ def phase_stream(card: str, device, deps) -> tuple[dict, dict]:
     """Kernel #6 vs its plain twin and DepositZTile vs DepositTile on the
     bench round, then one 512^2 pass with DepositStream; returns the
     kernel's row and the pass's launch counts."""
-    from raytrace3_tpu_torch.ops.deposit_kernel import (DepositZTile,
+    from raytrace3_tpu_torch.ops.deposit_kernel import (DepositZTile, deposit_geometry,
                                                         world_bounds_from_scene)
     from raytrace3_tpu_torch.ops.lane_kernel import (DepositStream, deposit_stream,
                                                      deposit_stream_plain, stream_mask)
@@ -874,27 +948,32 @@ def phase_stream(card: str, device, deps) -> tuple[dict, dict]:
     args = (itf, itab, starts, ends, packed, dep_packed)
     got = deposit_stream(*args)
     want, plain_ms = timed_once(lambda: deposit_stream_plain(*args))
-    cnt_mismatch, rel, err = compare_deposit(got, want)
+    want64 = deposit_stream_plain(*args, sum_dtype=torch.float64)
     n_items = int(ends.max())
     wa, wb = stream_mask(itf, itab)
-    pairs = int((wb - wa)[:n_items].sum()) * depo.tile
+    lanes = (torch.clamp(wb, max=Dp) - torch.clamp(wa, min=0)).clamp_min(0)[:n_items]
+    pairs = int(lanes.sum()) * depo.tile
     taken = float(want[:, 0].sum())
-    ms = cuda_ms(lambda: deposit_stream(*args))
+    times = kernel_times(lambda: deposit_stream(*args))
     print(f"[12] stream deposit on the bench round: {n_tiles} tiles of {depo.tile}, "
           f"{n_items} items of W = {depo.work_cap}, overflow {int(overflow)}; "
           f"{pairs / 1e9:.3f} G pair tests, pairs taken {int(taken)}")
-    print(f"[12] stream deposit: count mismatches {cnt_mismatch}, max relative flux error "
-          f"{rel:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (one call) ({card})")
+    cnt_mismatch, rel, err = compare_deposit_witnessed(12, got, want, want64)
+    print(f"[12] stream deposit: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
+          f"plain {plain_ms:.3f} ms (one call) ({card})")
     if cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0 or int(overflow) != 0:
         raise SystemExit("phase 12 failed: the stream deposit kernel disagrees with its "
                          "plain twin")
     c_pad, W = packed.shape[0], itf.shape[0]
     nbytes = 9 * Dp * 4 + 2 * c_pad * 8 * 4 + 2 * W * 4 + 2 * n_tiles * 4
     row = kernel_row("deposit_stream", "deposit_stream.cu",
-                     "raytrace3_tpu/ops/deposit_pallas.py:1106", err, ms, plain_ms,
+                     "raytrace3_tpu/ops/deposit_pallas.py:1106", err, times, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
-    print(f"[12] stream deposit: bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
-          f"kernel at {ms / row['bound_ms']:.1f}x it ({card})")
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=device),
+                                      (ends - starts).long())
+    per_tile = torch.zeros(n_tiles, dtype=torch.int64, device=device)
+    per_tile.index_add_(0, tile_of, lanes.long())
+    print_geometry(12, deposit_geometry(depo.tile), per_tile, row, card)
 
     # The coarse-z windows over the tile kernel take the tile deposit's pairs.
     from raytrace3_tpu_torch.ops.deposit_kernel import make_tile_deposit
@@ -961,7 +1040,7 @@ def main() -> int:
         if row["launches"] == 0:
             raise SystemExit(f"kernel {name} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@
 // On the reference1024 round: 9.721 ms against the first version's 26.386
 // ms in the same run, counts exact, flux 1.2e-6 from the plain twin summed
 // in float64 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6,
-// scripts/perf_deposit_kernels.py).
+// scripts/perf_kernels.py).
 
 #include <cuda_runtime.h>
 

@@ -1,10 +1,10 @@
 // Register-blocked pair loop fed by an asynchronous staging ring, shared by
-// the tile deposit (deposit_tile.cu) and the block deposit
-// (deposit_block.cu).
+// the tile deposit (deposit_tile.cu), the block deposit (deposit_block.cu)
+// and the stream deposit (deposit_stream.cu).
 //
 // Work of one CUDA block: one hit-point tile of `tile` slots against a
-// sequence of deposit-lane intervals [a, b) (the tile's cascaded windows, or
-// its work items' whole blocks).  The pair test is deposit_pair.cuh's
+// sequence of deposit-lane intervals [a, b) (the tile's cascaded windows,
+// its work items' whole blocks, or its stream items' masks).  The pair test is deposit_pair.cuh's
 // pair_passes, so the counts equal the plain PyTorch versions' exactly.
 //
 // Geometry (computed by the wrapper, ops/deposit_kernel.py:

@@ -15,62 +15,73 @@
 //   dep        (16, Dp) f32: pos xyz, n xyz, flux rgb, zeros, key-sorted;
 //   out        (c_pad, 8) f32: col 0 count, cols 1:4 flux sum, cols 4:8 zero.
 //
-// Design on Hopper.  One block per tile (blockDim = tile, up to 1024
-// threads, one per hit slot) walks its run in order; blocks own disjoint
-// output rows, so no atomics, and every row is written.  Per item the block
-// decodes the mask and stages only the masked lanes [wa, wb) (rows 0-8,
-// kStage lanes at a time, deposit_pair.cuh), so the 128-aligned fetch
-// survives only as the base of the mask.  The TPU kernel keeps nbuf - 1
-// DMA fetches in flight in a ring of VMEM buffers; this kernel has no
-// counterpart of that ring yet: each item's lanes are staged after the
-// previous item's are consumed.
+// What bounds it on an H100: instruction throughput, as for the tile and
+// block deposits: the bench round in tiles of 128 tests 2.485 G pairs over
+// 21,775 items; under -fmad=false the instruction floor is twice
+// chip_smoke.py's bound.
 //
-// Bound: the pair tests, 15 fp32 operations each plus 4 adds per pair
-// taken, over sum_j (wb - wa) x tile.  Built with -fmad=false, so counts
-// match the plain PyTorch version in raytrace3_tpu_torch/ops/lane_kernel.py
-// exactly and flux up to fp32 summation order.
+// Design (deposit_stage.cuh, as deposit_tile.cu and deposit_block.cu): a
+// stream item is one lane interval, its mask decoded here and clipped to
+// [0, Dp), so the 128-aligned fetch survives only as the base of the mask.
+// Each tile's items come straight from its run [starts, ends), with no
+// search.  From the header: 4 hit slots a thread, float4 groups of lanes,
+// pass bits, the 2-deep cp.async ring of 512-lane stages (the counterpart of
+// the TPU kernel's nbuf-deep DMA ring, with its depth fixed there), 256-
+// thread blocks and 8 blocks a tile whose sums combine_partials adds in
+// order.  The first version ran one block a tile, one thread a hit slot, and
+// staged each item's lanes with plain copies between two barriers a stage,
+// six scalar shared loads serving one pair test.  Counts equal the plain
+// PyTorch version's (raytrace3_tpu_torch/ops/lane_kernel.py) exactly; flux
+// differs by fp32 summation order.  On the bench round: 2.390 ms against the
+// first version's 7.129 ms in the same run (device times), counts exact,
+// flux 2.4e-7 from the plain twin summed in float64 (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md section 6, scripts/perf_kernels.py).
 
 #include <cuda_runtime.h>
 
-#include "deposit_pair.cuh"
+#include "deposit_stage.cuh"
 
 namespace {
 
-constexpr int kStage = 512;
-constexpr int kMaxTile = 1024;
+// Tile blockIdx.x's items, each its decoded mask clipped to the deposit array.
+struct StreamItems {
+  const int* __restrict__ itf;
+  const int* __restrict__ itab;
+  int lo, hi;
+  long long dp;
 
-__global__ void __launch_bounds__(kMaxTile)
-deposit_stream_kernel(const int* __restrict__ itf, const int* __restrict__ itab,
-                      const int* __restrict__ starts, const int* __restrict__ ends,
-                      const float* __restrict__ packed,
-                      const float* __restrict__ dep, long long dp,
-                      float* __restrict__ out) {
-  __shared__ float sd[9][kStage];
-
-  const int tile = blockIdx.x;
-  const long long slot = (long long)tile * blockDim.x + threadIdx.x;
-  const rt3::HitSlot h = rt3::load_slot(packed + slot * 8);
-
-  float cnt = 0.0f, f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
-  const int j0 = starts[tile], j1 = ends[tile];
-  for (int j = j0; j < j1; ++j) {
-    const long long f = itf[j];
-    const int ab = itab[j];
-    const long long a = max(f + (ab >> 16), 0LL);
-    const long long b = min(f + (ab & 0xFFFF), dp);
-    if (a >= b) continue;                    // the same for every thread
-    rt3::accumulate_lanes<kStage>(sd, dep, dp, (int)a, (int)b, h, cnt, f0, f1, f2);
+  __device__ int count() const { return hi - lo; }
+  __device__ void get(int i, long long& a, long long& b) const {
+    const long long f = itf[lo + i];
+    const int ab = itab[lo + i];
+    a = max(f + (ab >> 16), 0LL);
+    b = min(f + (ab & 0xFFFF), dp);
   }
-  rt3::store_row(out + slot * 8, cnt, f0, f1, f2);
+};
+
+__global__ void __launch_bounds__(rt3::kMaxThreads, rt3::kMinBlocks)
+deposit_stream_kernel(const int* __restrict__ itf, const int* __restrict__ itab,
+                      const int* __restrict__ starts, const int* __restrict__ ends, int tile,
+                      int splits, const float* __restrict__ packed,
+                      const float* __restrict__ dep, long long dp,
+                      float4* __restrict__ scratch, long long c_pad) {
+  const int t = blockIdx.x;
+  const StreamItems src{itf, itab, starts[t], ends[t], dp};
+  rt3::deposit_tile_over(src, tile, splits, packed, dep, dp, scratch, c_pad);
 }
 
 }  // namespace
 
+// threads, splits, gsplits, smem: the launch geometry (deposit_stage.cuh);
+// scratch: (gsplits, c_pad, 4) f32 for the grid splits' partial sums.
 extern "C" int rt3_deposit_stream(const int* itf, const int* itab, const int* starts,
                                   const int* ends, int n_tiles, int tile,
-                                  const float* packed, const float* dep,
-                                  long long dp, float* out, void* stream) {
-  deposit_stream_kernel<<<n_tiles, tile, 0, (cudaStream_t)stream>>>(
-      itf, itab, starts, ends, packed, dep, dp, out);
-  return (int)cudaGetLastError();
+                                  const float* packed, const float* dep, long long dp,
+                                  float* out, int threads, int splits, int gsplits, int smem,
+                                  float* scratch, void* stream) {
+  const long long c_pad = (long long)n_tiles * tile;
+  float4* part = reinterpret_cast<float4*>(scratch);
+  return rt3::launch_deposit(deposit_stream_kernel, n_tiles, tile, threads, splits, gsplits,
+                             smem, c_pad, out, part, (cudaStream_t)stream, itf, itab, starts,
+                             ends, tile, splits, packed, dep, dp, part, c_pad);
 }

@@ -45,7 +45,7 @@
 // On the bench round: 2.262 ms against the first version's 7.402 ms in the
 // same run, counts exact, flux 2.5e-7 from the plain twin summed in
 // float64 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6,
-// scripts/perf_deposit_kernels.py).  The TPU-only parts do not carry
+// scripts/perf_kernels.py).  The TPU-only parts do not carry
 // over: the 128-aligned DMA fetch with its lane mask (here a 16-byte-aligned
 // copy and zero normals on the head and tail lanes), the Dp - chunk clip
 // and the flattened scalar-prefetch operands.

@@ -42,7 +42,8 @@ import torch
 
 from ..core.types import Deposits, HitPoints
 from .cuda_build import CudaKernel, check, ptr
-from .deposit_kernel import DepositTile, HpLayout, interval_pairs, intervals_plain
+from .deposit_kernel import (_GEOMETRY_ARGS, DepositTile, HpLayout, _geometry_args,
+                             interval_pairs, intervals_plain)
 
 FORWARD = CudaKernel("deposit_lane.cu", "rt3_deposit_lane", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # item_lo, item_hi, n_tiles, tile
@@ -61,6 +62,7 @@ STREAM = CudaKernel("deposit_stream.cu", "rt3_deposit_stream", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # starts, ends, n_tiles, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,            # packed, dep, Dp
     ctypes.c_void_p,                                                # out
+    *_GEOMETRY_ARGS,
 ])
 #: The stream items' 16-bit mask fields hold offsets up to 2 chunks.
 MAX_STREAM_CHUNK = 0x7FFF
@@ -206,16 +208,17 @@ def stream_mask(itf: torch.Tensor, itab: torch.Tensor):
 
 def deposit_stream_plain(itf: torch.Tensor, itab: torch.Tensor, starts: torch.Tensor,
                          ends: torch.Tensor, packed: torch.Tensor,
-                         dep_packed: torch.Tensor,
-                         pairs_per_step: int = 1 << 22) -> torch.Tensor:
+                         dep_packed: torch.Tensor, pairs_per_step: int = 1 << 22,
+                         sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel #6's contract in plain PyTorch: count (col 0) and raw RGB flux
     (cols 1:4) per hit slot of tile i over the decoded lanes [wa, wb) of its
-    items [starts[i], ends[i]); tiles with an empty run read 0."""
+    items [starts[i], ends[i]); tiles with an empty run read 0.
+    ``sum_dtype``: see ``deposit_kernel.intervals_plain``."""
     wa, wb = stream_mask(itf, itab)
     tile_of, item = _runs_items(starts, ends)
     Dp = dep_packed.shape[1]
     return intervals_plain(tile_of, torch.clamp(wa[item], 0, Dp), torch.clamp(wb[item], 0, Dp),
-                           packed, dep_packed, starts.shape[0], pairs_per_step)
+                           packed, dep_packed, starts.shape[0], pairs_per_step, sum_dtype)
 
 
 def _deposit_stream_cuda(itf, itab, starts, ends, packed, dep_packed):
@@ -230,8 +233,10 @@ def _deposit_stream_cuda(itf, itab, starts, ends, packed, dep_packed):
     tile = packed.shape[0] // n_tiles
     _check_layout(packed, dep_packed, tile, dev)
     out = torch.empty((packed.shape[0], 8), dtype=torch.float32, device=dev)
+    gargs, scratch = _geometry_args(tile, packed.shape[0], dev)
     STREAM.launch(dev, ptr(itf), ptr(itab), ptr(starts), ptr(ends), n_tiles, tile,
-                  ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+                  ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out), *gargs)
+    del scratch     # the stream orders its reuse after the kernel
     return out
 
 
@@ -441,8 +446,9 @@ class DepositStream(DepositLane):
     and a lane mask packed as ``((wa - f) << 16) | (wb - f)``, through
     kernel #6.  Items beyond ``work_cap`` are dropped and counted in
     ``overflow``, as in ``DepositLane``.  ``nbuf`` is the depth of the TPU
-    kernel's DMA ring; the card's kernel stages one item at a time and does
-    not read it.
+    kernel's DMA ring, kept for parity with ``PallasDepositStream``; the
+    card's kernel does not read it: its ring's depth is
+    ``csrc/deposit_stage.cuh``'s ``kRing`` (``deposit_kernel.RING``).
     """
 
     def __init__(self, *a, nbuf: int = 2, **kw):

@@ -9,7 +9,10 @@ tensor program over (rays x patch lanes) with the kernel's exact contract
 
 The 128-lane coefficient-row layout of the TPU kernel exists to fill the
 TPU's vector unit; what survives of it here is the lane grouping, because
-the winner's tie rules are defined per group of 128 lanes.
+the winner's tie rules are defined per group of 128 lanes.  The kernel
+runs only the lanes whose patch box the ray opens and combines them in no
+fixed order (:func:`fold_winner` is the fold it must equal;
+:func:`drain_schedule` counts its work).
 """
 
 from __future__ import annotations
@@ -28,8 +31,14 @@ LANES = 128
 #: Total restarts per patch (a 2 x 4 stratified grid), the bench default.
 DEFAULT_RESTARTS = 8
 BIG = float(MAX_DIST)
-#: Shared memory holds the control points: 48 KB without an opt-in.
-MAX_PATCHES = 48 * 1024 // (48 * 4)
+#: csrc/newton.cu's compiled constants: threads a block (kThreads), rays a
+#: block (kRaysPerBlock), open (ray, patch) pairs its queue holds (kQueue)
+#: and the most patches it takes (kMaxPatches, a queue entry packs the
+#: patch in 8 bits).  A CPU test reads them back from the source.
+THREADS = 256
+RAYS_PER_BLOCK = 8
+QUEUE = 1024
+MAX_PATCHES = 256
 
 KERNEL = CudaKernel("newton.cu", "rt3_newton_solve", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # org, dir, ctrl
@@ -95,6 +104,35 @@ def _patch_eval(g, u, v, want_derivs: bool):
     return s, su, sv
 
 
+def box_open(org: torch.Tensor, dir: torch.Tensor, lo: torch.Tensor,
+             hi: torch.Tensor) -> torch.Tensor:
+    """(R, P) the kernel's gate: whether ray r meets box p ([lo, hi], each
+    (P, 3)) at some t >= 0, by the slab test in the kernel's operation
+    order; a NaN slab (0 * inf) opens the slab, as in the TPU kernel."""
+    ox, oy, oz = org[:, 0:1], org[:, 1:2], org[:, 2:3]
+    inv_x, inv_y, inv_z = 1.0 / dir[:, 0:1], 1.0 / dir[:, 1:2], 1.0 / dir[:, 2:3]
+    t0x, t1x = (lo[:, 0] - ox) * inv_x, (hi[:, 0] - ox) * inv_x
+    t0y, t1y = (lo[:, 1] - oy) * inv_y, (hi[:, 1] - oy) * inv_y
+    t0z, t1z = (lo[:, 2] - oz) * inv_z, (hi[:, 2] - oz) * inv_z
+    nanfix = lambda x, rep: torch.where(torch.isnan(x), rep, x)
+    tnear = torch.maximum(
+        torch.maximum(nanfix(torch.minimum(t0x, t1x), -BIG),
+                      nanfix(torch.minimum(t0y, t1y), -BIG)),
+        nanfix(torch.minimum(t0z, t1z), -BIG))
+    tfar = torch.minimum(
+        torch.minimum(nanfix(torch.maximum(t0x, t1x), BIG),
+                      nanfix(torch.maximum(t0y, t1y), BIG)),
+        nanfix(torch.maximum(t0z, t1z), BIG))
+    return tfar >= torch.clamp_min(tnear, 0.0)
+
+
+def open_pairs(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor) -> torch.Tensor:
+    """(R, B) the (ray, patch) pairs whose patch box the ray opens: the
+    pairs the kernel runs Newton lanes for."""
+    g = ctrl.reshape(ctrl.shape[0], 16, 3)
+    return box_open(org, dir, g.amin(1), g.amax(1))
+
+
 def solve_plain(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
                 iters: int = 10, restarts: int = DEFAULT_RESTARTS,
                 residual2_eps: float = M_EPS):
@@ -111,25 +149,11 @@ def solve_plain(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
     pad = torch.zeros((n_groups * per_group - B, 4, 4, 3), dtype=ctrl.dtype,
                       device=dev)
     g = torch.cat([ctrl, pad])[patch].reshape(n_lanes, 16, 3)
-    lo, hi = g.amin(1), g.amax(1)
     uv0 = torch.as_tensor(uv0_table(restarts), device=dev)[lane % restarts]
 
     ox, oy, oz = org[:, 0:1], org[:, 1:2], org[:, 2:3]
     dx, dy, dz = dir[:, 0:1], dir[:, 1:2], dir[:, 2:3]
-    inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
-    t0x, t1x = (lo[:, 0] - ox) * inv_x, (hi[:, 0] - ox) * inv_x
-    t0y, t1y = (lo[:, 1] - oy) * inv_y, (hi[:, 1] - oy) * inv_y
-    t0z, t1z = (lo[:, 2] - oz) * inv_z, (hi[:, 2] - oz) * inv_z
-    nanfix = lambda x, rep: torch.where(torch.isnan(x), rep, x)
-    tnear = torch.maximum(
-        torch.maximum(nanfix(torch.minimum(t0x, t1x), -BIG),
-                      nanfix(torch.minimum(t0y, t1y), -BIG)),
-        nanfix(torch.minimum(t0z, t1z), -BIG))
-    tfar = torch.minimum(
-        torch.minimum(nanfix(torch.maximum(t0x, t1x), BIG),
-                      nanfix(torch.maximum(t0y, t1y), BIG)),
-        nanfix(torch.maximum(t0z, t1z), BIG))
-    box_ok = (tfar >= torch.clamp_min(tnear, 0.0)) & valid
+    box_ok = box_open(org, dir, g.amin(1), g.amax(1)) & valid
 
     u = uv0[:, 0].expand(R, n_lanes)
     v = uv0[:, 1].expand(R, n_lanes)
@@ -174,16 +198,28 @@ def solve_plain(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
         best_u = torch.where(accept, u, best_u)
         best_v = torch.where(accept, v, best_v)
 
-    # Per group: min t, then the smallest u, v, patch id among the tied lanes.
+    t_out, u_out, v_out, p_out = fold_winner(best_t, best_u, best_v, patch)
+    pid = torch.clamp(p_out, 0, B - 1).to(torch.int32)
+    return t_out, u_out, v_out, pid, t_out < BIG * 0.5
+
+
+def fold_winner(best_t: torch.Tensor, best_u: torch.Tensor, best_v: torch.Tensor,
+                patch: torch.Tensor):
+    """Each ray's winner ``(t, u, v, patch as float)`` from its lanes' best
+    roots, (R, n_groups * 128) with ``best_t = BIG`` where a lane accepted
+    none, and the lanes' patch ids (n_groups * 128,): per group of 128
+    lanes the least t and the smallest u, v and patch id among the lanes
+    tied at it, each on its own; across groups, in order, only a strictly
+    smaller t replaces the running winner, from (BIG, 0, 0, 0)."""
+    R, n_groups = best_t.shape[0], best_t.shape[1] // LANES
     shape = (R, n_groups, LANES)
     best_t, best_u, best_v = (x.reshape(shape) for x in (best_t, best_u, best_v))
     tile_min = best_t.amin(-1)
     winner = best_t <= tile_min[..., None]
     sel = lambda x: torch.where(winner, x, BIG).amin(-1)
     w_u, w_v = sel(best_u), sel(best_v)
-    w_p = sel(patch.to(org.dtype).reshape(1, n_groups, LANES).expand(shape))
-    # Across groups, in order: only a strictly smaller t replaces the winner.
-    t_out = torch.full((R,), BIG, dtype=org.dtype, device=dev)
+    w_p = sel(patch.to(best_t.dtype).reshape(1, n_groups, LANES).expand(shape))
+    t_out = torch.full((R,), BIG, dtype=best_t.dtype, device=best_t.device)
     u_out = torch.zeros_like(t_out)
     v_out = torch.zeros_like(t_out)
     p_out = torch.zeros_like(t_out)
@@ -193,8 +229,39 @@ def solve_plain(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
         u_out = torch.where(better, w_u[:, grp], u_out)
         v_out = torch.where(better, w_v[:, grp], v_out)
         p_out = torch.where(better, w_p[:, grp], p_out)
-    pid = torch.clamp(p_out, 0, B - 1).to(torch.int32)
-    return t_out, u_out, v_out, pid, t_out < BIG * 0.5
+    return t_out, u_out, v_out, p_out
+
+
+def drain_schedule(open_pairs: torch.Tensor, restarts: int) -> dict:
+    """The kernel's work on a (R, B) mask of the (ray, patch) pairs that
+    open their patch box, as csrc/newton.cu schedules it: blocks of
+    ``RAYS_PER_BLOCK`` rays gate ``THREADS`` pairs a round (ray-major),
+    queue the open ones and drain the queue when one more round might
+    overflow it and after the last round; a drain runs ``THREADS //
+    restarts`` pairs a step.  Returns the blocks, the blocks that run no
+    Newton, the drains, the Newton steps and the share of their lanes that
+    held an open pair."""
+    R, B = open_pairs.shape
+    blocks = -(-R // RAYS_PER_BLOCK)
+    x = torch.zeros((blocks * RAYS_PER_BLOCK, B), dtype=torch.int64)
+    x[:R] = open_pairs.cpu()
+    x = x.reshape(blocks, RAYS_PER_BLOCK * B)
+    rounds = -(-x.shape[1] // THREADS)
+    x = torch.nn.functional.pad(x, (0, rounds * THREADS - x.shape[1]))
+    x = x.reshape(blocks, rounds, THREADS).sum(-1)
+    per_step = THREADS // restarts
+    qn = torch.zeros(blocks, dtype=torch.int64)
+    drains, steps = torch.zeros_like(qn), torch.zeros_like(qn)
+    for k in range(rounds):
+        qn = qn + x[:, k]
+        go = (qn > QUEUE - THREADS) | ((qn > 0) & (k == rounds - 1))
+        drains += go.long()
+        steps += torch.where(go, (qn + per_step - 1) // per_step, 0)
+        qn = torch.where(go, 0, qn)
+    n_steps = int(steps.sum())
+    return dict(blocks=blocks, blocks_without_newton=int((drains == 0).sum()),
+                drains=int(drains.sum()), steps=n_steps,
+                lane_fill=int(x.sum()) * restarts / max(n_steps * THREADS, 1))
 
 
 def _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps):

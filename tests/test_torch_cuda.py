@@ -10,7 +10,8 @@ it with:
 Tolerances: the kernels are built with -fmad=false and evaluate in the
 plain twins' operation order, so Newton outputs and deposit counts agree
 exactly; deposit flux sums (tile, block, stream and lane deposits, the
-lane transpose) differ only in summation order (rtol 1e-5).
+lane transpose) differ only in summation order (rtol 1e-5; the stream
+deposit's against its twin summed in float64).
 """
 
 import numpy as np
@@ -29,7 +30,9 @@ from raytrace3_tpu_torch.ops.lane_kernel import (DepositLane, DepositStream,
                                                  deposit_lane_bwd_plain,
                                                  deposit_lane_plain, deposit_stream,
                                                  deposit_stream_plain)
-from raytrace3_tpu_torch.ops.newton_kernel import solve, solve_plain
+from raytrace3_tpu_torch.ops.newton_kernel import (MAX_PATCHES, RAYS_PER_BLOCK,
+                                                   drain_schedule, open_pairs, solve,
+                                                   solve_plain)
 from raytrace3_tpu_torch.scenes import _teapot_ctrl
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +66,104 @@ def test_newton_kernel_matches_plain(cuda_device, restarts):
     assert int(want[4].sum()) > 100
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _assert_newton_exact(org, d, ctrl, restarts):
+    """One launch, every output equal to the plain twin's; returns the twin's."""
+    before = newton_kernel.KERNEL.launches
+    got = solve(org, d, ctrl, restarts=restarts)
+    torch.cuda.synchronize()
+    assert newton_kernel.KERNEL.launches == before + 1
+    want = solve_plain(org, d, ctrl, restarts=restarts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return want
+
+
+@pytest.mark.parametrize("restarts", [1, 8, 16, 128])
+@pytest.mark.parametrize("n_rays", [1, 2 * RAYS_PER_BLOCK + 7])
+def test_newton_kernel_exact_at_every_restart_count(cuda_device, restarts, n_rays):
+    """Restarts 1 to 128 (1 to 128 patches a lane group, 256 to 2 pairs a
+    drain step), one ray, and rays that leave the last block part full."""
+    org, d, ctrl = _teapot_rays(n_rays, 7, 6.0, cuda_device)
+    want = _assert_newton_exact(org, d, ctrl, restarts)
+    assert n_rays == 1 or int(want[4].sum()) > n_rays // 4
+
+
+@pytest.mark.parametrize("n_patches", [1, MAX_PATCHES])
+def test_newton_kernel_exact_at_the_patch_limits(cuda_device, n_patches):
+    """One patch, and the most the kernel takes (eight shifted copies of the
+    teapot, boxes overlapping): shared memory past 48 KB needs the opt-in."""
+    org, d, teapot = _teapot_rays(300, 8, 10.0, cuda_device)
+    if n_patches == 1:
+        ctrl = teapot[5:6].contiguous()
+        d = ctrl.reshape(-1, 3).mean(0) - org
+        d = d + 0.3 * torch.as_tensor(np.random.default_rng(8).normal(size=d.shape),
+                                      dtype=torch.float32, device=cuda_device)
+        d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    else:
+        shift = torch.tensor([1.5, 0.75, -1.0], device=cuda_device)
+        ctrl = torch.cat([teapot + k * shift for k in range(n_patches // 32)]).contiguous()
+    assert ctrl.shape[0] == n_patches
+    want = _assert_newton_exact(org, d, ctrl, 8)
+    assert int(want[4].sum()) > 30
+
+
+@pytest.mark.parametrize("restarts", [1, 8])
+def test_newton_kernel_exact_when_every_box_opens(cuda_device, restarts):
+    """Rays starting inside all 256 patch boxes open every (ray, patch)
+    pair: each full block fills and drains its queue more than once."""
+    rng = np.random.default_rng(restarts)
+    g = rng.uniform(-1.0, 1.0, (MAX_PATCHES, 16, 3))
+    g[:, 0], g[:, 15] = -1.0, 1.0                     # every box is [-1, 1]^3
+    n = RAYS_PER_BLOCK + 9
+    org = rng.uniform(-0.5, 0.5, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org, d, ctrl = (torch.as_tensor(x.astype(np.float32), device=cuda_device)
+                    for x in (org, d, g.reshape(MAX_PATCHES, 4, 4, 3)))
+    gate = open_pairs(org, d, ctrl)
+    assert bool(gate.all())
+    sched = drain_schedule(gate, restarts)
+    assert sched["drains"] > sched["blocks"]
+    want = _assert_newton_exact(org, d, ctrl, restarts)
+    assert int(want[4].sum()) > n // 2
+
+
+@pytest.mark.parametrize("restarts", [8, 16])
+def test_newton_kernel_exact_on_tied_patches(cuda_device, restarts):
+    """Patches repeated inside a lane group (at 8 restarts) and across
+    groups give exact ties in t: the winner is the lowest patch id, with
+    the tied lanes' least u and v, as the twin's fold takes them."""
+    org, d, teapot = _teapot_rays(400, 9, 6.0, cuda_device)
+    ctrl = torch.cat([teapot[:8]] * 4).contiguous()
+    want = _assert_newton_exact(org, d, ctrl, restarts)
+    hit = want[4]
+    assert int(hit.sum()) > 20 and int(want[3][hit].max()) < 8
+
+
+def test_newton_kernel_refuses_a_shape_it_cannot_take(cuda_device):
+    """More patches than MAX_PATCHES or none, restarts that do not divide
+    128, or a (gu, gv) grid of another count: the C entry point returns
+    cudaErrorInvalidValue (1) and launches nothing; the wrapper refuses
+    first."""
+    from raytrace3_tpu_torch.ops.cuda_build import ptr as p
+
+    org, d, teapot = _teapot_rays(8, 0, 10.0, cuda_device)
+    big = torch.cat([teapot] * (MAX_PATCHES // 32 + 1)).contiguous()
+    with pytest.raises(ValueError):
+        solve(org, d, big)
+    out = [torch.empty(8, dtype=dt, device=cuda_device)
+           for dt in (torch.float32, torch.float32, torch.float32, torch.int32, torch.bool)]
+    launch = lambda ctrl, b, restarts, gu, gv: newton_kernel.KERNEL.launch(
+        cuda_device, p(org), p(d), p(ctrl), 8, b, restarts, gu, gv, 10, 1e-4,
+        *(p(x) for x in out))
+    launch(teapot, 32, 8, 2, 4)
+    torch.cuda.synchronize()
+    for bad in [(big, big.shape[0], 8, 2, 4), (teapot, 32, 6, 2, 3), (teapot, 32, 8, 2, 3),
+                (teapot, 0, 8, 2, 4)]:
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            launch(*bad)
 
 
 def test_newton_wrapper_checks_its_inputs(cuda_device):
@@ -350,7 +451,103 @@ def test_stream_kernel_matches_plain(cuda_device):
     got = deposit_stream(itf, itab, starts, ends, packed, dep_packed)
     torch.cuda.synchronize()
     assert lane_kernel.STREAM.launches == before + 1
-    want = deposit_stream_plain(itf, itab, starts, ends, packed, dep_packed)
+    want = deposit_stream_plain(itf, itab, starts, ends, packed, dep_packed,
+                                sum_dtype=torch.float64)
     assert float(want[:, 0].sum()) > 1000
     torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _stream_items(s, e, device):
+    """Kernel #6's items for (n_tiles, K) intervals [s, e): each fetches from
+    its start aligned down to 128 lanes, the mask packed in two 16-bit
+    fields (an interval with e < s is an empty mask); tile i runs its K."""
+    s, e = s.long(), e.long()
+    f = s - s % 128
+    itab = ((s - f) << 16) | torch.clamp_min(e - f, 0)
+    n_tiles, K = s.shape
+    starts = torch.arange(n_tiles, device=device) * K
+    i32 = lambda x: x.reshape(-1).to(torch.int32).contiguous()
+    return i32(f), i32(itab), i32(starts), i32(starts + K)
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 128, 1000, 1001])
+@pytest.mark.parametrize("dp, offset", [(4096, 0), (4001, 0), (4096, 1)])
+def test_stream_kernel_ragged_shapes(cuda_device, tile, dp, offset):
+    """Kernel #6 at tiles that are no multiple of 4 slots or of a warp, over
+    items whose masks start at every lane residue mod 4, empty and one-lane
+    ones, one tile with an empty run; with Dp or the deposit array off
+    16-byte alignment (4-byte copies).  Flux against the twin summed in
+    float64."""
+    rng = np.random.default_rng(tile + dp + offset + 1)
+    n_tiles, K = 6, 5
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device, offset)
+    itf, itab, starts, ends = _stream_items(*_ragged_intervals(rng, n_tiles, K, dp, cuda_device),
+                                            cuda_device)
+    ends[2] = starts[2]                       # tile 2 runs no item and reads 0
+    args = (itf, itab, starts, ends, packed, dep_packed)
+    want = deposit_stream_plain(*args, sum_dtype=torch.float64)
+    assert float(want[:, 0].sum()) > 100
+    before = lane_kernel.STREAM.launches
+    got = deposit_stream(*args)
+    torch.cuda.synchronize()
+    assert lane_kernel.STREAM.launches == before + 1
+    _assert_deposit_equal(got, want)
+    assert float(got.reshape(n_tiles, tile, 8)[2].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 1000, 1001])
+def test_stream_kernel_under_a_cut_cap(cuda_device, tile):
+    """Kernel #6 at ragged tiles on a work list cut one item into the run
+    of a tile in the middle of the list: the straddling tile keeps its
+    partial sums, the tiles beyond the cut read 0, and everything matches
+    the twin summed in float64."""
+    hp, dep = _wall_case(np.random.default_rng(5), 20000, 200000, cuda_device)
+    ps = DepositStream(**dict(LANE_KW, tile=tile, chunk=256, work_cap=1 << 20))
+    prep = ps.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // tile
+    dkeys, dep_packed, Dp = ps._dep_sorted(dep, ps.chunk)
+    sk, ek = ps._window_lanes(prep, dkeys, n_tiles)
+    itf, itab, starts, ends, overflow = ps.stream_items(sk, ek, n_tiles, Dp)
+    assert int(overflow) == 0
+    cands = torch.nonzero(ends - starts >= 3).flatten()
+    cut = int(cands[len(cands) // 2])
+    W = int(starts[cut]) + 2
+    starts, ends = torch.clamp_max(starts, W), torch.clamp_max(ends, W)
+    args = (itf[:W].contiguous(), itab[:W].contiguous(), starts, ends, packed, dep_packed)
+    want = deposit_stream_plain(*args, sum_dtype=torch.float64)
+    rows = want.reshape(n_tiles, tile, 8)
+    assert float(rows[cut + 1:].abs().sum()) == 0.0 and float(rows[:cut, :, 0].sum()) > 1000
+    got = deposit_stream(*args)
+    torch.cuda.synchronize()
+    _assert_deposit_equal(got, want)
+    assert float(got.reshape(n_tiles, tile, 8)[cut + 1:].abs().sum()) == 0.0
+
+
+def test_stream_kernel_refuses_a_foreign_geometry(cuda_device):
+    """Kernel #6 launches with deposit_geometry's launch geometry and
+    refuses any other with cudaErrorInvalidValue (1), as the tile kernel
+    does."""
+    rng = np.random.default_rng(1)
+    tile, n_tiles, K, dp = 96, 3, 4, 2048
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device)
+    items = _stream_items(*_ragged_intervals(rng, n_tiles, K, dp, cuda_device), cuda_device)
+    g = deposit_geometry(tile)
+    out = torch.empty((n_tiles * tile, 8), dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty((g.gsplits, n_tiles * tile, 4), dtype=torch.float32,
+                          device=cuda_device)
+    launch = lambda *geom: lane_kernel.STREAM.launch(
+        cuda_device, *(ptr(x) for x in items), n_tiles, tile, ptr(packed), ptr(dep_packed), dp,
+        ptr(out), *geom, ptr(scratch))
+    launch(g.threads, g.splits, g.gsplits, g.shared_bytes)
+    torch.cuda.synchronize()
+    _assert_deposit_equal(out, deposit_stream_plain(*items, packed, dep_packed,
+                                                    sum_dtype=torch.float64))
+    for bad in [(g.threads - 1, g.splits, g.gsplits, g.shared_bytes),
+                (g.threads + g.slot_threads, g.splits + 1, g.gsplits, g.shared_bytes),
+                (g.threads, g.splits, g.gsplits, g.shared_bytes - 4),
+                (g.threads, g.splits, 0, g.shared_bytes)]:
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            launch(*bad)
