@@ -37,9 +37,12 @@ with a non-zero exit when it fails:
   5. the render path: ``build_scene`` + ``make_pass_fn``, one warm pass and
      timed passes, with the kernels' launch counters read around them;
   6. the lane deposit kernel against its plain twin on one train round
-     (14 x 32768 deposits against the 256^2 hit-point layout);
+     (14 x 32768 deposits against the 256^2 hit-point layout), the flux held
+     to the twin summed in float64, with its launch geometry, items per
+     tile and lanes per item;
   7. its transpose, the backward kernel, against its plain twin on the
-     same inputs with a seeded cotangent;
+     same inputs with a seeded cotangent, held to the twin summed in
+     float64 and to itself bit for bit over two calls;
   8. a small train step (16 x 16, 2 x 256 photons, the teapot in view) on
      the card against the same step on the CPU with the same draws, walks
      held segment by segment: loss and gradients;
@@ -604,18 +607,32 @@ def train_round(device):
                 n_tiles=n_tiles, Dp=Dp, deps=deps, hp_count=int(st["count"]))
 
 
+def print_parts(phase: int, what: str, lo, hi, lanes, per_block: int, n_items: int,
+                geometry: str) -> None:
+    """A lane kernel's launch: its runs cut into parts of ``per_block``
+    items (one block a part), items per run and lanes per item."""
+    from raytrace3_tpu_torch.ops.lane_kernel import run_parts
+
+    runs = (hi - lo).double()
+    parts = int(run_parts(lo, hi, per_block, n_items)[1][-1])
+    lanes = lanes.double()
+    print(f"[{phase}] launch geometry: {geometry}; {parts} blocks, one a part of at most "
+          f"{per_block} items; items per {what} max {int(runs.max())}, mean "
+          f"{float(runs.mean()):.2f} over {runs.numel()}; lanes per item max "
+          f"{int(lanes.max())}, mean {float(lanes.mean()):.1f}")
+
+
 def phase_lane(card: str, r: dict) -> dict:
     """Kernel #3 vs its plain twin on one train round."""
-    from raytrace3_tpu_torch.ops.lane_kernel import deposit_lane, deposit_lane_plain
+    from raytrace3_tpu_torch.ops.deposit_kernel import deposit_geometry
+    from raytrace3_tpu_torch.ops.lane_kernel import (LANE_GRID_SPLITS, LANE_ITEMS_PER_BLOCK,
+                                                     deposit_lane, deposit_lane_plain)
 
     depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
     lo, hi, wa, wb, overflow = depo.forward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
     got = deposit_lane(lo, hi, wa, wb, packed, dep_packed)
     want = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed)
-    cnt_mismatch = int((got[:, 0] != want[:, 0]).sum())
-    dflux = (got[:, 1:4] - want[:, 1:4]).abs()
-    rel = float((dflux / want[:, 1:4].abs().clamp_min(1e-6)).max())
-    err = float((got - want).abs().max())
+    want64 = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed, sum_dtype=torch.float64)
     items = int(hi.max())
     pairs = int((wb - wa)[:items].sum()) * depo.tile
     taken = float(want[:, 0].sum())
@@ -628,8 +645,8 @@ def phase_lane(card: str, r: dict) -> dict:
           f"deposits, {r['hp_count']} hit points in {r['n_tiles']} tiles of {depo.tile}; "
           f"{items} work items of {depo.work_cap} (of {int(total)} needed), "
           f"{pairs / 1e9:.3f} G pair tests; pairs found {int(taken)}")
-    print(f"[6] lane deposit: count mismatches {cnt_mismatch}, max relative flux error "
-          f"{rel:.3g}, overflow {int(overflow)} / kernel path {int(kernel_overflow)}")
+    cnt_mismatch, rel, err = compare_deposit_witnessed(6, got, want, want64)
+    print(f"[6] lane deposit: overflow {int(overflow)} / kernel path {int(kernel_overflow)}")
     print(f"[6] lane deposit: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
           f"plain {plain_ms:.3f} ms ({card})")
     if (cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL or taken == 0
@@ -640,13 +657,22 @@ def phase_lane(card: str, r: dict) -> dict:
     row = kernel_row("deposit_lane", "deposit_lane.cu",
                      "raytrace3_tpu/ops/deposit_pallas.py:530", err, times, plain_ms,
                      PAIR_OPS * pairs + TAKEN_OPS_FWD * taken, nbytes)
+    geom = deposit_geometry(depo.tile, LANE_GRID_SPLITS)
+    print_parts(6, "tile", lo, hi, (wb - wa)[:items], LANE_ITEMS_PER_BLOCK, W,
+                f"{geom.threads} threads a block = {geom.slot_threads} slot threads x "
+                f"{geom.splits} lane splits, {geom.shared_bytes} B shared")
+    print(f"[6] kernel {row['ms']:.3f} ms = {row['ms'] / row['bound_ms']:.2f}x its bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) ({card})")
     row["_taken"] = taken
     return row
 
 
 def phase_lane_bwd(card: str, r: dict, taken: float) -> dict:
-    """Kernel #4 vs its plain twin on the same round, u ~ U(0, 1) seeded."""
-    from raytrace3_tpu_torch.ops.lane_kernel import deposit_lane_bwd, deposit_lane_bwd_plain
+    """Kernel #4 vs its plain twin on the same round, u ~ U(0, 1) seeded:
+    held to the twin summed in float64, and two calls bit for bit."""
+    from raytrace3_tpu_torch.ops.lane_kernel import (LANE_BWD_ITEMS_PER_BLOCK,
+                                                     deposit_lane_bwd, deposit_lane_bwd_plain,
+                                                     lane_bwd_geometry)
 
     depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
     items = depo.backward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
@@ -654,26 +680,41 @@ def phase_lane_bwd(card: str, r: dict, taken: float) -> dict:
     u = torch.rand((packed.shape[0], 3), generator=gen, device=packed.device)
     args = (*items, packed, u, dep_packed, depo.tile)
     got = deposit_lane_bwd(*args, depo.chunk)
+    again = deposit_lane_bwd(*args, depo.chunk)
     want = deposit_lane_bwd_plain(*args)
-    rel = float(((got - want).abs() / want.abs().clamp_min(1e-6)).max())
-    err = float((got - want).abs().max())
+    want64 = deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    relative = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+    rel, rel_plain, rel_twin = relative(got, want64), relative(got, want), relative(want, want64)
+    err = float((got - want64).abs().max())
+    bitwise = bool(torch.equal(got, again))
     run_lo, run_hi, wt, wa, wb = items
-    pairs = int((wb - wa)[: int(run_hi.max())].sum()) * depo.tile
+    n_items = int(run_hi.max())
+    pairs = int((wb - wa)[:n_items].sum()) * depo.tile
     times = kernel_times(lambda: deposit_lane_bwd(*args, depo.chunk))
     plain_ms = cuda_ms(lambda: deposit_lane_bwd_plain(*args), 3)
-    print(f"[7] lane backward: {int(run_hi.max())} work items of {wt.shape[0]} over "
+    print(f"[7] lane backward: {n_items} work items of {wt.shape[0]} over "
           f"{run_lo.shape[0]} deposit chunks of {depo.chunk}, {pairs / 1e9:.3f} G pair tests; "
-          f"max relative error {rel:.3g}, max |d| {err:.3g}, sum {float(want.sum()):.6g}")
+          f"sum {float(want64.sum()):.6g}")
+    print(f"[7] max relative error against the float64-summed twin {rel:.3g} (max |d| "
+          f"{err:.3g}); against the float32 twin {rel_plain:.3g}, which sits {rel_twin:.3g} "
+          f"from the float64-summed one; two calls bit for bit equal: {bitwise}")
     print(f"[7] lane backward: kernel {times[0]:.3f} ms device, {times[1]:.3f} ms a call, "
           f"plain {plain_ms:.3f} ms ({card})")
-    if not rel <= DEPOSIT_FLUX_RTOL or float(want.sum()) <= 0:
-        raise SystemExit("phase 7 failed: the lane backward kernel disagrees with its plain twin")
+    if not rel <= DEPOSIT_FLUX_RTOL or float(want.sum()) <= 0 or not bitwise:
+        raise SystemExit("phase 7 failed: the lane backward kernel disagrees with its plain "
+                         "twin or with itself")
+    geom = lane_bwd_geometry(depo.tile, depo.chunk)
+    print_parts(7, "chunk", run_lo, run_hi, (wb - wa)[:n_items], LANE_BWD_ITEMS_PER_BLOCK,
+                wt.shape[0], f"{geom.threads} threads a block, {geom.shared_bytes} B shared")
     c_pad, Dp, W = packed.shape[0], dep_packed.shape[1], wt.shape[0]
     nbytes = (6 * Dp * 4 + c_pad * 8 * 4 + c_pad * 3 * 4 + 3 * Dp * 4 + 3 * W * 4
               + 2 * run_lo.shape[0] * 4)
-    return kernel_row("deposit_lane_bwd", "deposit_lane_bwd.cu",
-                      "raytrace3_tpu/ops/deposit_pallas.py:1243", err, times, plain_ms,
-                      PAIR_OPS * pairs + TAKEN_OPS_BWD * taken, nbytes)
+    row = kernel_row("deposit_lane_bwd", "deposit_lane_bwd.cu",
+                     "raytrace3_tpu/ops/deposit_pallas.py:1243", err, times, plain_ms,
+                     PAIR_OPS * pairs + TAKEN_OPS_BWD * taken, nbytes)
+    print(f"[7] kernel {row['ms']:.3f} ms = {row['ms'] / row['bound_ms']:.2f}x its bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) ({card})")
+    return row
 
 
 def small_train_step(device, draws, steps=None):

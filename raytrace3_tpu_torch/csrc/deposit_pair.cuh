@@ -33,35 +33,6 @@ __device__ __forceinline__ bool pair_passes(const HitSlot& h, float dx_, float d
   return d2 <= h.r2 && ndot > kNormalDotMin;
 }
 
-// Accumulates deposit lanes [s, e) into the count and flux of this thread's
-// hit slot, staging kStage lanes of rows 0-8 at a time in `sd`.  Every
-// thread of the block calls it with the same [s, e), which lies in [0, dp).
-template <int kStage>
-__device__ __forceinline__ void accumulate_lanes(float (*sd)[kStage],
-                                                 const float* __restrict__ dep,
-                                                 long long dp, int s, int e,
-                                                 const HitSlot& h, float& cnt,
-                                                 float& f0, float& f1, float& f2) {
-  for (int base = s; base < e; base += kStage) {
-    const int n = min(kStage, e - base);
-    __syncthreads();                        // the previous stage is consumed
-    for (int i = threadIdx.x; i < 9 * kStage; i += blockDim.x) {
-      const int row = i / kStage, col = i % kStage;
-      if (col < n) sd[row][col] = dep[row * dp + base + col];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      if (pair_passes(h, sd[0][j], sd[1][j], sd[2][j], sd[3][j], sd[4][j],
-                      sd[5][j])) {
-        cnt += 1.0f;
-        f0 += sd[6][j];
-        f1 += sd[7][j];
-        f2 += sd[8][j];
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void store_row(float* o, float cnt, float f0, float f1,
                                           float f2) {
   o[0] = cnt;

@@ -1,10 +1,11 @@
 // Register-blocked pair loop fed by an asynchronous staging ring, shared by
-// the tile deposit (deposit_tile.cu), the block deposit (deposit_block.cu)
-// and the stream deposit (deposit_stream.cu).
+// the tile deposit (deposit_tile.cu), the block deposit (deposit_block.cu),
+// the stream deposit (deposit_stream.cu) and the lane deposit
+// (deposit_lane.cu).
 //
 // Work of one CUDA block: one hit-point tile of `tile` slots against a
 // sequence of deposit-lane intervals [a, b) (the tile's cascaded windows,
-// its work items' whole blocks, or its stream items' masks).  The pair test is deposit_pair.cuh's
+// its work items' whole blocks, or its stream or lane items' masks).  The pair test is deposit_pair.cuh's
 // pair_passes, so the counts equal the plain PyTorch versions' exactly.
 //
 // Geometry (computed by the wrapper, ops/deposit_kernel.py:
@@ -19,7 +20,9 @@
 //     shared memory, so the result does not depend on timing);
 //   * grid splits: blockIdx.y of gridDim.y takes every gridDim.y-th stage
 //     of the tile's sequence and writes its partial sums (cnt, flux rgb)
-//     to scratch[blockIdx.y]; combine_partials adds them in order.
+//     to scratch[blockIdx.y]; combine_partials adds them in order.  Each
+//     kernel's wrapper chooses gridDim.y (8 for the tile, block and stream
+//     deposits; the lane deposit's items are shorter than a stage).
 // Staging: the lanes of an interval are cut into stages of kStageLanes,
 // each starting at a lane aligned down to 4 (16 bytes), so rows 0-8 of a
 // stage are copied with 16-byte cp.async (4-byte copies when Dp or the
@@ -260,19 +263,19 @@ __device__ __forceinline__ void test_stage(const float* __restrict__ buf, const 
   }
 }
 
-// This grid split's share of the deposit of one tile (blockIdx.x) over the
-// intervals of `src`, into scratch[blockIdx.y]: see the top of this file.
-template <class Src>
-__device__ __forceinline__ void deposit_tile_over(const Src& src, int tile, int splits,
-                                                  const float* __restrict__ packed,
-                                                  const float* __restrict__ dep,
-                                                  long long dp,
-                                                  float4* __restrict__ scratch,
-                                                  long long c_pad) {
+// The deposit of the tile whose slots start at `slot0` over the stages
+// first, first + every, ... of the intervals of `src`: emit(s, (cnt, flux
+// rgb)) for each slot s < tile, from the threads of split 0.
+template <class Src, class Emit>
+__device__ __forceinline__ void deposit_slots_over(const Src& src, long long slot0, int tile,
+                                                   int splits,
+                                                   const float* __restrict__ packed,
+                                                   const float* __restrict__ dep,
+                                                   long long dp, int first, int every,
+                                                   Emit emit) {
   float* ring = reinterpret_cast<float*>(stage_smem);
   const int q_threads = blockDim.x / splits;
   const int q = threadIdx.x % q_threads, p = threadIdx.x / q_threads;
-  const long long slot0 = (long long)blockIdx.x * tile;
 
   HitSlot h[kSlotsPerThread];
   Acc acc;
@@ -285,17 +288,16 @@ __device__ __forceinline__ void deposit_tile_over(const Src& src, int tile, int 
   }
 
   const bool vec = (dp & 3) == 0 && (reinterpret_cast<uintptr_t>(dep) & 15) == 0;
-  const int gsplit = blockIdx.y, gsplits = gridDim.y;
   StageIter<Src> it(src);
   int index = 0;
   Stage cur, nxt;
-  bool have = it.next_own(cur, index, gsplit, gsplits);
+  bool have = it.next_own(cur, index, first, every);
   if (have) copy_stage(ring, cur, dep, dp, vec);
   int b = 0;
   while (have) {
     cp_async_wait_all();
     __syncthreads();      // stage landed everywhere; the other buffer is free
-    const bool more = it.next_own(nxt, index, gsplit, gsplits);
+    const bool more = it.next_own(nxt, index, first, every);
     if (more) copy_stage(ring + (b ^ 1) * kRows * kStageLanes, nxt, dep, dp, vec);
     test_stage(ring + b * kRows * kStageLanes, cur, p, splits, h, acc);
     cur = nxt;
@@ -327,9 +329,83 @@ __device__ __forceinline__ void deposit_tile_over(const Src& src, int tile, int 
       acc.f1[k] += e.z;
       acc.f2[k] += e.w;
     }
-    scratch[gsplit * c_pad + slot0 + s] =
-        make_float4(acc.cnt[k], acc.f0[k], acc.f1[k], acc.f2[k]);
+    emit(s, make_float4(acc.cnt[k], acc.f0[k], acc.f1[k], acc.f2[k]));
   }
+}
+
+// This grid split's share of the deposit of one tile (blockIdx.x) over the
+// intervals of `src`, into scratch[blockIdx.y]: see the top of this file.
+template <class Src>
+__device__ __forceinline__ void deposit_tile_over(const Src& src, int tile, int splits,
+                                                  const float* __restrict__ packed,
+                                                  const float* __restrict__ dep,
+                                                  long long dp,
+                                                  float4* __restrict__ scratch,
+                                                  long long c_pad) {
+  const long long slot0 = (long long)blockIdx.x * tile;
+  float4* dst = scratch + blockIdx.y * c_pad + slot0;
+  deposit_slots_over(src, slot0, tile, splits, packed, dep, dp, blockIdx.y, gridDim.y,
+                     [dst](int s, const float4& v) { dst[s] = v; });
+}
+
+// Runs of work items cut into parts of at most `per_block` items, one block
+// a part (the lane deposit and its transpose): a run of n items has
+// max(1, ceil(n / per_block)) parts (an empty run one, which writes its
+// zeros).  part_end[r] is the cumulative part count through run r; block j
+// takes part j - (part_end[r] - parts) of run r = part_run[j].  A run of one
+// part writes its result straight to the output, a run of several writes
+// each part's partial sums to scratch[j] and a second kernel adds them in
+// part order.
+__host__ __device__ inline int parts_of(int lo, int hi, int per_block) {
+  return hi - lo > per_block ? (hi - lo + per_block - 1) / per_block : 1;
+}
+
+constexpr int kPlanThreads = 1024;
+
+// Plans the parts of runs [lo[r], hi[r]) in one block of kPlanThreads:
+// part_end (n_runs) by a block-wide scan of the part counts, part_run
+// (n_parts) the run of each part, the spare entries past the last part
+// n_runs (ops/lane_kernel.py: run_parts is its plain version).  The launch
+// takes n_parts = parts_bound(n_runs, per_block, n_items) blocks, which no
+// plan of a list of n_items exceeds.
+__host__ __device__ inline long long parts_bound(int n_runs, int per_block, int n_items) {
+  return n_runs + ((long long)n_items + per_block - 1) / per_block;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+plan_parts(const int* __restrict__ lo, const int* __restrict__ hi, int n_runs, int per_block,
+           int n_parts, int* __restrict__ part_end, int* __restrict__ part_run) {
+  __shared__ int warp_sum[kPlanThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int carry = 0;                            // parts of the runs before this round
+  for (int base = 0; base < n_runs; base += kPlanThreads) {
+    const int r = base + t;
+    const int v = r < n_runs ? parts_of(lo[r], hi[r], per_block) : 0;
+    int incl = v;                           // inclusive scan within the warp
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += x;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {                        // scan of the warps' sums
+      int w = warp_sum[lane];
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, w, d);
+        if (lane >= d) w += x;
+      }
+      warp_sum[lane] = w;
+    }
+    __syncthreads();
+    const int end = carry + incl + (warp > 0 ? warp_sum[warp - 1] : 0);
+    if (r < n_runs) {
+      part_end[r] = end;
+      for (int j = end - v; j < min(end, n_parts); ++j) part_run[j] = r;
+    }
+    carry += warp_sum[kPlanThreads / 32 - 1];
+    __syncthreads();                        // warp_sum is rewritten next round
+  }
+  for (int j = carry + t; j < n_parts; j += kPlanThreads) part_run[j] = n_runs;
 }
 
 // out[i] = sum over grid splits g (in order) of scratch[g][i], cols 4:8 zero.

@@ -90,9 +90,11 @@ RING = 2
 STAGED_ROWS = 9
 MAX_THREADS = 256
 MAX_SHARED_BYTES = 48 * 1024
-#: Blocks per tile: the heaviest tile holds ~1% of a round's lanes (16x the
-#: mean) on the paths' rounds, and splitting every tile's stages 8 ways
-#: keeps it off the kernel's tail (PERF.md section 6).
+#: Blocks per tile of the tile, block and stream deposits: the heaviest tile
+#: holds ~1% of a round's lanes (16x the mean) on the paths' rounds, and
+#: splitting every tile's stages 8 ways keeps it off the kernel's tail
+#: (PERF.md section 6).  The lane deposit takes its own
+#: (``lane_kernel.LANE_GRID_SPLITS``).
 GRID_SPLITS = 8
 
 
@@ -102,8 +104,8 @@ class DepositGeometry:
     size (csrc/deposit_stage.cuh): ``slot_threads`` = ceil(tile / R)
     threads each hold R slots (thread q: slots q + k slot_threads, k < R),
     ``splits`` such groups share a block and split the lanes of every stage
-    among them, and ``gsplits`` = GRID_SPLITS blocks per tile split the
-    tile's stages."""
+    among them, and ``gsplits`` blocks per tile split the tile's stages
+    (GRID_SPLITS unless the kernel chooses another)."""
 
     tile: int
     slot_threads: int
@@ -122,17 +124,19 @@ class DepositGeometry:
         return thread // self.slot_threads
 
 
-def deposit_geometry(tile: int) -> DepositGeometry:
-    """The geometry for ``tile`` (1..1024) slots: as many lane splits as
-    fit in ``MAX_THREADS`` threads, and shared memory for the staging ring
-    or, if larger, the splits' partial sums."""
+def deposit_geometry(tile: int, gsplits: int = GRID_SPLITS) -> DepositGeometry:
+    """The geometry for ``tile`` (1..1024) slots and ``gsplits`` blocks a
+    tile: as many lane splits as fit in ``MAX_THREADS`` threads, and shared
+    memory for the staging ring or, if larger, the splits' partial sums."""
     if not 1 <= tile <= 1024:
         raise ValueError(f"tile {tile} is not in 1..1024")
+    if gsplits < 1:
+        raise ValueError(f"gsplits {gsplits} is not at least 1")
     q = -(-tile // SLOTS_PER_THREAD)
     splits = max(1, MAX_THREADS // q)
     ring = RING * STAGED_ROWS * STAGE_LANES * 4
     partial_sums = (splits - 1) * tile * 16          # one float4 a slot and split
-    return DepositGeometry(tile, q, splits, GRID_SPLITS, q * splits, max(ring, partial_sums))
+    return DepositGeometry(tile, q, splits, gsplits, q * splits, max(ring, partial_sums))
 
 
 def _geometry_args(tile: int, c_pad: int, dev: torch.device):

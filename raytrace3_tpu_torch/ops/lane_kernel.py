@@ -37,25 +37,32 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
 from ..core.types import Deposits, HitPoints
 from .cuda_build import CudaKernel, check, ptr
 from .deposit_kernel import (_GEOMETRY_ARGS, DepositTile, HpLayout, _geometry_args,
-                             interval_pairs, intervals_plain)
+                             deposit_geometry, interval_pairs, intervals_plain)
 
 FORWARD = CudaKernel("deposit_lane.cu", "rt3_deposit_lane", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # item_lo, item_hi, n_tiles, tile
     ctypes.c_void_p, ctypes.c_void_p,                               # wa, wb
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,            # packed, dep, Dp
     ctypes.c_void_p,                                                # out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,      # threads, splits, smem, scratch
+    ctypes.c_void_p, ctypes.c_void_p,                               # part_run, part_end
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # n_parts, n_items, per_block
 ])
 BACKWARD = CudaKernel("deposit_lane_bwd.cu", "rt3_deposit_lane_bwd", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # run_lo, run_hi, n_blocks, chunk
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # wt, wa, wb, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,              # packed, u, dep
     ctypes.c_longlong, ctypes.c_void_p,                             # Dp, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # threads, smem, scratch
+    ctypes.c_void_p, ctypes.c_void_p,                               # part_run, part_end
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # n_parts, n_items, per_block
 ])
 STREAM = CudaKernel("deposit_stream.cu", "rt3_deposit_stream", [
     ctypes.c_void_p, ctypes.c_void_p,                               # itf, itab
@@ -69,6 +76,87 @@ MAX_STREAM_CHUNK = 0x7FFF
 #: the forward's fetch alignment on the TPU (the DMA's lane granule): item
 #: boundaries, and so work-item counts and overflow, follow it
 FETCH_ALIGN = 128
+#: Kernels #3 and #4 run one block a part of a run of work items (a tile's
+#: for #3, a deposit chunk's for #4): a part holds at most this many items
+#: (``run_parts``).  On the train round a tile has 1.9 items and a chunk 8.8
+#: on average, the heaviest 28 and 276; 3 was the fastest of 2-5 for #3 and
+#: of 2-8 for #4 there (PERF.md section 6).
+LANE_ITEMS_PER_BLOCK = 3
+LANE_BWD_ITEMS_PER_BLOCK = 3
+#: Kernel #3's grid splits (deposit_stage.cuh): one, as its blocks follow
+#: the parts of each tile's run instead.
+LANE_GRID_SPLITS = 1
+#: csrc/deposit_lane_bwd.cu's compiled constants: the largest tile, chunk
+#: and block (kBwdMaxTile, kBwdMaxChunk, kBwdMaxThreads), the most items a
+#: part (kBwdMaxItems), a block's shared memory on an H100 with the opt-in
+#: (kBwdMaxSharedBytes) and the most slot groups (kBwdMaxGroups).  The
+#: kernel refuses a geometry that does not fit them; a CPU test reads them
+#: back from the source.
+LANE_BWD_MAX_TILE = 1024
+LANE_BWD_MAX_CHUNK = 1024
+LANE_BWD_MAX_THREADS = 1024
+LANE_BWD_MAX_ITEMS = 8
+LANE_BWD_MAX_SHARED_BYTES = 232448
+LANE_BWD_MAX_GROUPS = 16
+
+
+def parts_bound(n_runs: int, per_block: int, n_items: int) -> int:
+    """The most parts runs of a work list of ``n_items`` can have: the
+    launch's block count, which needs no count from the device."""
+    return n_runs + -(-n_items // per_block)
+
+
+def run_parts(lo: torch.Tensor, hi: torch.Tensor, per_block: int, n_items: int):
+    """(part_run, part_end), int32: runs [lo_r, hi_r) of a work list of
+    ``n_items`` cut into parts of at most ``per_block`` items, an empty run
+    one part.  ``part_end[r]`` counts the parts through run r;
+    ``part_run[j]`` is part j's run, for ``parts_bound`` parts, the spare
+    ones marked ``len(lo)``.  The plain version of the kernels' plan
+    (``csrc/deposit_stage.cuh: plan_parts``)."""
+    n = torch.clamp_min(hi - lo, 0)
+    parts = torch.clamp_min(torch.div(n + per_block - 1, per_block, rounding_mode="floor"), 1)
+    part_end = torch.cumsum(parts, 0, dtype=torch.int32)
+    j = torch.arange(parts_bound(lo.shape[0], per_block, n_items), dtype=torch.int32,
+                     device=lo.device)
+    return torch.searchsorted(part_end, j, right=True, out_int32=True), part_end
+
+
+@dataclass(frozen=True)
+class LaneBwdGeometry:
+    """Launch geometry of kernel #4 (csrc/deposit_lane_bwd.cu): ``threads``
+    = the chunk rounded up to a warp, one block a part of at most
+    ``items_per_block`` items of a chunk's run (``run_parts``), and
+    ``shared_bytes`` of dynamic shared memory for the part's tiles, the
+    partial sums (``partial_stride`` each of 3) and the chunk's deposit
+    lanes."""
+
+    tile: int
+    chunk: int
+    items_per_block: int
+    threads: int
+    partial_stride: int
+    shared_bytes: int
+
+    def groups(self, lanes: int) -> int:
+        """Slot groups the kernel makes for a part of ``lanes`` masked
+        lanes in all: virtual thread g lanes + q tests lane q against rows
+        g, g + groups, ..."""
+        if lanes <= 0:
+            return 0
+        return max(1, min(self.threads // lanes, self.tile, LANE_BWD_MAX_GROUPS))
+
+
+def lane_bwd_geometry(tile: int, chunk: int) -> LaneBwdGeometry:
+    """The geometry of kernel #4 for ``tile`` (1..1024) hit slots and
+    ``chunk`` (1..1024) deposit lanes a chunk, in parts of at most
+    ``LANE_BWD_ITEMS_PER_BLOCK`` items."""
+    k = LANE_BWD_ITEMS_PER_BLOCK
+    if not 1 <= tile <= LANE_BWD_MAX_TILE or not 1 <= chunk <= LANE_BWD_MAX_CHUNK:
+        raise ValueError(f"tile {tile} or chunk {chunk} is not in 1..1024")
+    threads = -(-chunk // 32) * 32
+    stride = max(threads, k * chunk)
+    smem = 4 * (k * (tile * 8 + -(-tile * 3 // 4) * 4) + 3 * stride + 6 * chunk)
+    return LaneBwdGeometry(tile, chunk, k, threads, stride, smem)
 
 
 def _runs_items(lo: torch.Tensor, hi: torch.Tensor):
@@ -82,34 +170,38 @@ def _runs_items(lo: torch.Tensor, hi: torch.Tensor):
 
 def deposit_lane_plain(item_lo: torch.Tensor, item_hi: torch.Tensor, wa: torch.Tensor,
                        wb: torch.Tensor, packed: torch.Tensor, dep_packed: torch.Tensor,
-                       pairs_per_step: int = 1 << 22) -> torch.Tensor:
+                       pairs_per_step: int = 1 << 22,
+                       sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel #3's contract in plain PyTorch: count (col 0) and raw RGB flux
     (cols 1:4) per hit slot of tile i over lanes [wa, wb) of its items
     [item_lo[i], item_hi[i]); tiles with an empty run read 0.  Steps of
-    ``pairs_per_step`` pair tests keep a full round in memory."""
+    ``pairs_per_step`` pair tests keep a full round in memory.
+    ``sum_dtype``: see ``deposit_kernel.intervals_plain``."""
     tile_of, item = _runs_items(item_lo, item_hi)
     return intervals_plain(tile_of, wa.long()[item], wb.long()[item], packed,
-                           dep_packed, item_lo.shape[0], pairs_per_step)
+                           dep_packed, item_lo.shape[0], pairs_per_step, sum_dtype)
 
 
 def deposit_lane_bwd_plain(run_lo: torch.Tensor, run_hi: torch.Tensor, wt: torch.Tensor,
                            wa: torch.Tensor, wb: torch.Tensor, packed: torch.Tensor,
                            u: torch.Tensor, dep_packed: torch.Tensor, tile: int,
-                           pairs_per_step: int = 1 << 22) -> torch.Tensor:
+                           pairs_per_step: int = 1 << 22,
+                           sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel #4's contract in plain PyTorch: (3, Dp) d_flux per sorted
     deposit lane, the sum over the items of its chunk's run [run_lo,
     run_hi) of u_i over the pairs (hit slot i of tile ``wt``, lane in
-    [wa, wb)) taken; chunks with an empty run read 0."""
+    [wa, wb)) taken; chunks with an empty run read 0.  The sums are taken
+    in ``sum_dtype`` (float64: each lane's sum rounded to float32 once, the
+    witness the kernel is held to)."""
     n_tiles = packed.shape[0] // tile
     _, item = _runs_items(run_lo, run_hi)
-    uu = u.reshape(n_tiles, tile, 3)
-    out = torch.zeros((dep_packed.shape[1], 3), dtype=torch.float32,
-                      device=packed.device)
+    uu = u.reshape(n_tiles, tile, 3).to(sum_dtype)
+    out = torch.zeros((dep_packed.shape[1], 3), dtype=sum_dtype, device=packed.device)
     for tl, lane, _, m in interval_pairs(wt.long()[item], wa.long()[item],
                                          wb.long()[item], packed.reshape(n_tiles, tile, 8),
                                          dep_packed, pairs_per_step):
-        out.index_add_(0, lane, (m[:, :, None] * uu[tl]).sum(1))
-    return out.T.contiguous()
+        out.index_add_(0, lane, (m.to(sum_dtype)[:, :, None] * uu[tl]).sum(1))
+    return out.T.to(torch.float32).contiguous()
 
 
 def _check_layout(packed, dep_packed, tile, dev):
@@ -135,9 +227,24 @@ def _deposit_lane_cuda(item_lo, item_hi, wa, wb, packed, dep_packed):
     tile = packed.shape[0] // n_tiles
     _check_layout(packed, dep_packed, tile, dev)
     out = torch.empty((packed.shape[0], 8), dtype=torch.float32, device=dev)
-    FORWARD.launch(dev, ptr(item_lo), ptr(item_hi), n_tiles, tile, ptr(wa), ptr(wb),
-                   ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out))
+    launch_lane(FORWARD, out, item_lo, item_hi, wa, wb, packed, dep_packed)
     return out
+
+
+def launch_lane(kernel, out, item_lo, item_hi, wa, wb, packed, dep_packed):
+    """Kernel #3's entry point (``kernel``) into ``out`` with its launch
+    geometry, one block a part of ``LANE_ITEMS_PER_BLOCK`` items."""
+    per_block = LANE_ITEMS_PER_BLOCK
+    n_tiles, tile, dev = item_lo.shape[0], packed.shape[0] // item_lo.shape[0], out.device
+    geom = deposit_geometry(tile, LANE_GRID_SPLITS)
+    n_parts = parts_bound(n_tiles, per_block, wa.shape[0])
+    scratch = torch.empty((n_parts, tile, 4), dtype=torch.float32, device=dev)
+    plan = torch.empty((n_parts + n_tiles,), dtype=torch.int32, device=dev)
+    kernel.launch(dev, ptr(item_lo), ptr(item_hi), n_tiles, tile, ptr(wa), ptr(wb),
+                  ptr(packed), ptr(dep_packed), dep_packed.shape[1], ptr(out), geom.threads,
+                  geom.splits, geom.shared_bytes, ptr(scratch), ptr(plan),
+                  ptr(plan[n_parts:]), n_parts, wa.shape[0], per_block)
+    del scratch, plan   # the stream orders their reuse after the kernel
 
 
 def deposit_lane(item_lo: torch.Tensor, item_hi: torch.Tensor, wa: torch.Tensor,
@@ -173,9 +280,26 @@ def _deposit_lane_bwd_cuda(run_lo, run_hi, wt, wa, wb, packed, u, dep_packed,
         raise ValueError(f"Dp {Dp} is not {n_blocks} chunks of {chunk} (1..1024) lanes")
     out = torch.empty((3, Dp), dtype=torch.float32, device=dev)
     if n_blocks:
-        BACKWARD.launch(dev, ptr(run_lo), ptr(run_hi), n_blocks, chunk, ptr(wt), ptr(wa),
-                        ptr(wb), tile, ptr(packed), ptr(u), ptr(dep_packed), Dp, ptr(out))
+        launch_lane_bwd(BACKWARD, out, run_lo, run_hi, wt, wa, wb, packed, u, dep_packed,
+                        tile, chunk)
     return out
+
+
+def launch_lane_bwd(kernel, out, run_lo, run_hi, wt, wa, wb, packed, u, dep_packed,
+                    tile: int, chunk: int):
+    """Kernel #4's entry point (``kernel``) into ``out`` with its launch
+    geometry, one block a part of ``LANE_BWD_ITEMS_PER_BLOCK`` items."""
+    dev, n_blocks, Dp = out.device, run_lo.shape[0], out.shape[1]
+    geom = lane_bwd_geometry(tile, chunk)
+    per_block = geom.items_per_block
+    n_parts = parts_bound(n_blocks, per_block, wt.shape[0])
+    scratch = torch.empty((n_parts, 3, chunk), dtype=torch.float32, device=dev)
+    plan = torch.empty((n_parts + n_blocks,), dtype=torch.int32, device=dev)
+    kernel.launch(dev, ptr(run_lo), ptr(run_hi), n_blocks, chunk, ptr(wt), ptr(wa), ptr(wb),
+                  tile, ptr(packed), ptr(u), ptr(dep_packed), Dp, ptr(out), geom.threads,
+                  geom.shared_bytes, ptr(scratch), ptr(plan), ptr(plan[n_parts:]), n_parts,
+                  wt.shape[0], per_block)
+    del scratch, plan   # the stream orders their reuse after the kernel
 
 
 def deposit_lane_bwd(run_lo: torch.Tensor, run_hi: torch.Tensor, wt: torch.Tensor,

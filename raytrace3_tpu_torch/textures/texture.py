@@ -4,7 +4,8 @@ Port of ``raytrace3_tpu/textures/texture.py``.  The procedural generators
 are host-side numpy, copied verbatim (the port may not import the JAX
 package).  ``sample_atlas`` fetches the four bilinear taps with four
 gathers; the JAX side packs them into one 12-float row because a TPU gather
-costs per index, which a GPU gather does not.
+costs per index, which a GPU gather does not.  ``load_image`` reads the
+asset textures of ``RT3_ASSET_TEXTURES`` with PIL, imported only there.
 """
 
 from __future__ import annotations
@@ -117,6 +118,21 @@ def marble(res: int = 256) -> np.ndarray:
 
 def flat(res: int = 256, color=(0.2, 0.4, 0.9)) -> np.ndarray:
     return np.broadcast_to(np.asarray(color, np.float32), (res, res, 3)).copy()
+
+
+def load_image(path: str, res: int = 256) -> np.ndarray:
+    """Load an image file into a (res, res, 3) float32 RGB array in [0, 1]:
+    PIL's bilinear resize (which widens its filter when it shrinks), as the
+    JAX package's ``load_image`` does, so both give the same numbers."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"reading the asset texture {path} (RT3_ASSET_TEXTURES) needs "
+                          "PIL, which is not installed; unset RT3_ASSET_TEXTURES to use "
+                          "the procedural textures") from e
+
+    img = Image.open(path).convert("RGB").resize((res, res), Image.BILINEAR)
+    return np.asarray(img, np.float32) / 255.0
 
 
 def build_atlas(textures: list[np.ndarray], device="cpu") -> torch.Tensor:

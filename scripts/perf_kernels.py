@@ -9,8 +9,9 @@ NVIDIA GPU and nvcc.
 ``raytrace3_tpu_torch/csrc`` unpacked there).  Its tile and block deposits
 take the launch geometry as the current ones do when ``DIR`` has
 ``deposit_stage.cuh`` and end at ``out`` otherwise (the first versions, one
-block a tile); likewise its stream deposit when its ``deposit_stream.cu``
-includes that header.  The Newton entry point is the same in every version.
+block a tile); likewise its stream and lane deposits when their sources
+include that header, and its lane transpose when its source has
+``bwd_geometry_fits``.  The Newton entry point is the same in every version.
 
 Kernels and inputs (those chip_smoke.py builds):
   * Newton (#1): the rays of phase 2's photon segment, and the largest
@@ -24,9 +25,14 @@ Kernels and inputs (those chip_smoke.py builds):
     ``DepositBlock`` as the CLI builds it (tile 1024, wchunk 1024, work cap
     65536: phase 10);
   * the stream deposit (#6) on the bench round through ``DepositStream``
-    at tile 128, chunk 1024 (phase 12).
-For the deposits: the lanes per tile, and the new and old kernels and the
-float32 plain twin against the plain twin with its flux summed in float64
+    at tile 128, chunk 1024 (phase 12);
+  * the lane deposit (#3) and its transpose (#4) on the train round (256^2
+    hit points, 14 x 32768 deposits, ``DepositLane`` at tile 256, chunk
+    512, as the train step builds it: phases 6 and 7), #4 with a seeded
+    cotangent and checked bit for bit over two calls.
+For the deposits: the lanes per tile (and for #3 and #4 the lanes per item
+and the items per tile or chunk), and the new and old kernels and the
+float32 plain twin against the plain twin with its sums taken in float64
 (counts exact, flux rtol 1e-5 for the kernels).  Times: device times
 (chip_smoke.device_ms: a CUDA graph of 10 launches, median of ``--reps``
 replays) in the order old, new, new, old, and beside them each version's
@@ -60,7 +66,8 @@ from raytrace3_tpu_torch.ops import newton_kernel as nk  # noqa: E402
 
 #: The first versions' deposit entry points end at ``out``.
 LEGACY_ARGS = {"tile": dk.KERNEL.argtypes[:9], "block": dk.BLOCK_KERNEL.argtypes[:11],
-               "stream": lk.STREAM.argtypes[:10]}
+               "stream": lk.STREAM.argtypes[:10], "lane": lk.FORWARD.argtypes[:10],
+               "lane_bwd": lk.BACKWARD.argtypes[:13]}
 
 
 class ClockSampler:
@@ -90,10 +97,13 @@ class Parent:
 
     def __init__(self, csrc_dir: Path):
         staged = (csrc_dir / "deposit_stage.cuh").exists()
-        stream_src = (csrc_dir / "deposit_stream.cu").read_text()
+        src = lambda name: (csrc_dir / name).read_text()
         self.legacy = {"tile": not staged, "block": not staged,
-                       "stream": "deposit_stage.cuh" not in stream_src}
-        current = {"tile": dk.KERNEL, "block": dk.BLOCK_KERNEL, "stream": lk.STREAM}
+                       "stream": "deposit_stage.cuh" not in src("deposit_stream.cu"),
+                       "lane": "deposit_stage.cuh" not in src("deposit_lane.cu"),
+                       "lane_bwd": "bwd_geometry_fits" not in src("deposit_lane_bwd.cu")}
+        current = {"tile": dk.KERNEL, "block": dk.BLOCK_KERNEL, "stream": lk.STREAM,
+                   "lane": lk.FORWARD, "lane_bwd": lk.BACKWARD}
         self.kernels = {name: cuda_build.CudaKernel(
             k.source, k.symbol, LEGACY_ARGS[name] if self.legacy[name] else k.argtypes, csrc_dir)
             for name, k in current.items()}
@@ -109,6 +119,34 @@ class Parent:
             gargs, scratch = dk._geometry_args(tile, c_pad, dev)
             self.kernels[name].launch(dev, *args, cuda_build.ptr(out), *gargs)
             del scratch     # the stream orders its reuse after the kernel
+        return out
+
+    def lane(self, item_lo, item_hi, wa, wb, packed, dep_packed):
+        """``out`` of the earlier lane deposit."""
+        out = torch.empty((packed.shape[0], 8), dtype=torch.float32, device=packed.device)
+        if self.legacy["lane"]:
+            p = cuda_build.ptr
+            self.kernels["lane"].launch(
+                packed.device, p(item_lo), p(item_hi), item_lo.shape[0],
+                packed.shape[0] // item_lo.shape[0], p(wa), p(wb), p(packed), p(dep_packed),
+                dep_packed.shape[1], p(out))
+        else:
+            lk.launch_lane(self.kernels["lane"], out, item_lo, item_hi, wa, wb, packed,
+                           dep_packed)
+        return out
+
+    def lane_bwd(self, run_lo, run_hi, wt, wa, wb, packed, u, dep_packed, tile, chunk):
+        """The (3, Dp) ``out`` of the earlier lane transpose."""
+        Dp = dep_packed.shape[1]
+        out = torch.empty((3, Dp), dtype=torch.float32, device=packed.device)
+        if self.legacy["lane_bwd"]:
+            p = cuda_build.ptr
+            self.kernels["lane_bwd"].launch(
+                packed.device, p(run_lo), p(run_hi), run_lo.shape[0], chunk, p(wt), p(wa),
+                p(wb), tile, p(packed), p(u), p(dep_packed), Dp, p(out))
+        else:
+            lk.launch_lane_bwd(self.kernels["lane_bwd"], out, run_lo, run_hi, wt, wa, wb,
+                               packed, u, dep_packed, tile, chunk)
         return out
 
     def newton(self, org, dir, ctrl, iters, restarts):
@@ -184,9 +222,19 @@ def layout(depo, hp, deps, granularity):
 
 
 def lane_stats(lanes):
+    """Count, max, mean, 99th percentile and the largest's share of a
+    per-tile (or per-item, per-chunk) count."""
     x = lanes.double()
-    return dict(tiles=int(x.numel()), max=int(x.max()), mean=float(x.mean()),
+    return dict(n=int(x.numel()), max=int(x.max()), mean=float(x.mean()),
                 p99=float(torch.quantile(x, 0.99)), heaviest_share=float(x.max() / x.sum()))
+
+
+def per_run(lo, hi, per_item):
+    """Sums of ``per_item`` over each run of items [lo_k, hi_k)."""
+    owner, item = lk._runs_items(lo, hi)
+    out = torch.zeros(lo.shape[0], dtype=torch.int64, device=lo.device)
+    out.index_add_(0, owner, per_item.long()[item])
+    return out
 
 
 def compare(got, want):
@@ -289,6 +337,68 @@ def stream_case(name, depo, hp, deps, parent, reps):
     return timed(rec, run_old, run_new, reps)
 
 
+def lane_case(name, r, parent, reps):
+    """Kernel #3 on the train round (chip_smoke.py phase 6)."""
+    depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
+    lo, hi, wa, wb, overflow = depo.forward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
+    n_items = int(hi.max())
+    lanes = (wb - wa).clamp_min(0)
+    tile = depo.tile
+    args = (lo, hi, wa, wb, packed, dep_packed)
+    run_old = lambda: parent.lane(*args)
+    run_new = lambda: lk._deposit_lane_cuda(*args)
+    plain = lk.deposit_lane_plain(*args)
+    witness = lk.deposit_lane_plain(*args, sum_dtype=torch.float64)
+    rec = dict(name=name, kernel="deposit_lane", tile=tile, items=n_items,
+               lanes_per_item=lane_stats(lanes[:n_items]), items_per_tile=lane_stats(hi - lo),
+               lanes_per_tile=lane_stats(per_run(lo, hi, lanes)),
+               pairs=int(lanes[:n_items].sum()) * tile, taken=int(plain[:, 0].sum()),
+               overflow=int(overflow), items_per_block=lk.LANE_ITEMS_PER_BLOCK,
+               parts=int(lk.run_parts(lo, hi, lk.LANE_ITEMS_PER_BLOCK, wa.shape[0])[1][-1]),
+               geometry=asdict(dk.deposit_geometry(tile, lk.LANE_GRID_SPLITS)),
+               **against_witness(run_new(), run_old(), plain, witness))
+    return timed(rec, run_old, run_new, reps)
+
+
+def compare_flux(got, want):
+    """Max relative and absolute distance of (3, Dp) lane sums."""
+    d = (got - want).abs()
+    rel = float((d / want.abs().clamp_min(1e-6)).max())
+    return dict(max_rel_flux=rel, max_abs=float(d.max()), ok=rel <= cs.DEPOSIT_FLUX_RTOL)
+
+
+def lane_bwd_case(name, r, parent, reps):
+    """Kernel #4 on the train round with a seeded cotangent (chip_smoke.py
+    phase 7); the new kernel's two calls must agree bit for bit."""
+    depo, packed, dep_packed = r["depo"], r["packed"], r["dep_packed"]
+    run_lo, run_hi, wt, wa, wb = depo.backward_items(r["sk"], r["ek"], r["n_tiles"], r["Dp"])
+    gen = torch.Generator(device=packed.device).manual_seed(4)
+    u = torch.rand((packed.shape[0], 3), generator=gen, device=packed.device)
+    n_items = int(run_hi.max())
+    lanes = (wb - wa).clamp_min(0)
+    tile, chunk = depo.tile, depo.chunk
+    args = (run_lo, run_hi, wt, wa, wb, packed, u, dep_packed, tile)
+    run_old = lambda: parent.lane_bwd(*args, chunk)
+    run_new = lambda: lk._deposit_lane_bwd_cuda(*args, chunk)
+    plain = lk.deposit_lane_bwd_plain(*args)
+    witness = lk.deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    new, old = run_new(), run_old()
+    repeat = bool(torch.equal(new, run_new()))
+    geom = lk.lane_bwd_geometry(tile, chunk)
+    rec = dict(name=name, kernel="deposit_lane_bwd", tile=tile, chunk=chunk, items=n_items,
+               lanes_per_item=lane_stats(lanes[:n_items]),
+               items_per_chunk=lane_stats(run_hi - run_lo),
+               lanes_per_chunk=lane_stats(per_run(run_lo, run_hi, lanes)),
+               pairs=int(lanes[:n_items].sum()) * tile, geometry=asdict(geom),
+               items_per_block=lk.LANE_BWD_ITEMS_PER_BLOCK, parts=int(lk.run_parts(
+                   run_lo, run_hi, lk.LANE_BWD_ITEMS_PER_BLOCK, wt.shape[0])[1][-1]),
+               new_vs_f64=compare_flux(new, witness), old_vs_f64=compare_flux(old, witness),
+               plain_vs_f64=compare_flux(plain, witness), new_vs_plain=compare_flux(new, plain),
+               new_repeats_bitwise=repeat, old_repeats_bitwise=bool(torch.equal(old, run_old())))
+    rec["new_vs_f64"]["ok"] = rec["new_vs_f64"]["ok"] and repeat
+    return timed(rec, run_old, run_new, reps)
+
+
 def newton_case(name, call, parent, reps):
     """Both Newton versions against the plain twin (every output equal) and
     against each other in time."""
@@ -367,7 +477,7 @@ def main() -> int:
     print(card, flush=True)
     parent = Parent(args.parent)
     current = {"newton": nk.KERNEL, "tile": dk.KERNEL, "block": dk.BLOCK_KERNEL,
-               "stream": lk.STREAM}
+               "stream": lk.STREAM, "lane": lk.FORWARD, "lane_bwd": lk.BACKWARD}
     builds = [(f"{v}_{n}", k) for v, ks in (("old", parent.kernels), ("new", current))
               for n, k in ks.items()]
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -400,6 +510,11 @@ def main() -> int:
     add(stream_case("bench512_stream128", lk.DepositStream(**cs.STREAM, **xy), hp, deps,
                     parent, args.reps))
     del hp, deps
+
+    r = cs.train_round(device)
+    add(lane_case("train256_lane256", r, parent, args.reps))
+    add(lane_bwd_case("train256_lane_bwd256", r, parent, args.reps))
+    del r
 
     cfg, depo, hp, st, deps = cs.preset_round(device)
     add(block_case("ref1024_block1024", depo, hp, deps, parent, args.reps))

@@ -10,8 +10,10 @@ it with:
 Tolerances: the kernels are built with -fmad=false and evaluate in the
 plain twins' operation order, so Newton outputs and deposit counts agree
 exactly; deposit flux sums (tile, block, stream and lane deposits, the
-lane transpose) differ only in summation order (rtol 1e-5; the stream
-deposit's against its twin summed in float64).
+lane transpose) differ only in summation order (rtol 1e-5; the stream and
+lane deposits' and the lane transpose's against their twins summed in
+float64).  The lane transpose adds without atomics, so two calls agree bit
+for bit.
 """
 
 import numpy as np
@@ -551,3 +553,283 @@ def test_stream_kernel_refuses_a_foreign_geometry(cuda_device):
                 (g.threads, g.splits, 0, g.shared_bytes)]:
         with pytest.raises(RuntimeError, match="CUDA error 1 "):
             launch(*bad)
+
+
+def _lane_items(s, e, device):
+    """Kernel #3's items for (n_tiles, K) intervals [s, e): tile i runs
+    items [i K, (i + 1) K)."""
+    n_tiles, K = s.shape
+    lo = torch.arange(n_tiles, dtype=torch.int32, device=device) * K
+    flat = lambda x: x.reshape(-1).contiguous()
+    return lo, (lo + K).contiguous(), flat(s), flat(e)
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 256, 1000, 1001])
+@pytest.mark.parametrize("dp, offset", [(4096, 0), (4001, 0), (4096, 1)])
+def test_lane_kernel_ragged_shapes(cuda_device, tile, dp, offset):
+    """Kernel #3 at tiles that are no multiple of 4 slots or of a warp, over
+    items whose masks start at every lane residue mod 4, empty and one-lane
+    ones, one tile with an empty run; with Dp or the deposit array off
+    16-byte alignment (4-byte copies).  Counts exact, flux against the twin
+    summed in float64."""
+    rng = np.random.default_rng(tile + dp + offset + 2)
+    n_tiles, K = 6, 5
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device, offset)
+    lo, hi, wa, wb = _lane_items(*_ragged_intervals(rng, n_tiles, K, dp, cuda_device),
+                                 cuda_device)
+    hi[2] = lo[2]                             # tile 2 runs no item and reads 0
+    args = (lo, hi, wa, wb, packed, dep_packed)
+    want = deposit_lane_plain(*args, sum_dtype=torch.float64)
+    assert float(want[:, 0].sum()) > 100
+    before = lane_kernel.FORWARD.launches
+    got = deposit_lane(*args)
+    torch.cuda.synchronize()
+    assert lane_kernel.FORWARD.launches == before + 1
+    _assert_deposit_equal(got, want)
+    assert float(got.reshape(n_tiles, tile, 8)[2].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("tile", [30, 32, 96, 256, 1001])
+def test_lane_kernel_under_a_cut_cap(cuda_device, tile):
+    """Kernel #3 with the work cap cut one item into the run of a tile in
+    the middle of the list (DepositLane.forward_items cuts the runs): the
+    straddling tile keeps its partial sums, the tiles beyond read 0."""
+    hp, dep = _wall_case(np.random.default_rng(6), 20000, 200000, cuda_device)
+    pd = DepositLane(**dict(LANE_KW, tile=tile, chunk=256, work_cap=1 << 20))
+    prep = pd.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // tile
+    dkeys, dep_packed, Dp = pd._dep_sorted(dep, pd.chunk)
+    sk, ek = pd._window_lanes(prep, dkeys, n_tiles)
+    lo, hi, _, _, overflow = pd.forward_items(sk, ek, n_tiles, Dp)
+    assert int(overflow) == 0
+    cands = torch.nonzero(hi - lo >= 3).flatten()
+    cut = int(cands[len(cands) // 2])
+    pd.work_cap = int(lo[cut]) + 2
+    lo, hi, wa, wb, overflow = pd.forward_items(sk, ek, n_tiles, Dp)
+    assert int(overflow) > 0 and int(hi[cut] - lo[cut]) == 2
+    args = (lo, hi, wa, wb, packed, dep_packed)
+    want = deposit_lane_plain(*args, sum_dtype=torch.float64)
+    rows = want.reshape(n_tiles, tile, 8)
+    assert float(rows[cut + 1:].abs().sum()) == 0.0 and float(rows[:cut, :, 0].sum()) > 1000
+    got = deposit_lane(*args)
+    torch.cuda.synchronize()
+    _assert_deposit_equal(got, want)
+    assert float(got.reshape(n_tiles, tile, 8)[cut + 1:].abs().sum()) == 0.0
+
+
+def _bwd_items(rng, n_blocks, chunk, n_tiles, device):
+    """Kernel #4's chunk-sorted items: 0 to 12 a chunk (chunks 1 and 3 none),
+    each a random tile and a mask inside its chunk: one-lane, short, long
+    and whole-chunk masks, and an empty one."""
+    wt, wa, wb, run_lo, run_hi = [], [], [], [], []
+    for b in range(n_blocks):
+        k = 0 if b in (1, 3) else int(rng.integers(1, 13))
+        run_lo.append(len(wt))
+        for i in range(k):
+            kind = rng.choice(["one", "short", "long", "whole", "empty"],
+                              p=[.15, .45, .25, .1, .05])
+            s = int(rng.integers(0, chunk))
+            n = {"one": 1, "short": int(rng.integers(2, 40)), "long": chunk, "whole": chunk,
+                 "empty": 0}[kind]
+            if kind == "whole" or (b == 0 and i == 0):
+                s, n = 0, chunk
+            if b == 2 and i == 0:
+                n = 1
+            wt.append(int(rng.integers(0, n_tiles)))
+            wa.append(b * chunk + s)
+            wb.append(b * chunk + min(s + n, chunk))
+        run_hi.append(len(wt))
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return i32(run_lo), i32(run_hi), i32(wt), i32(wa), i32(wb)
+
+
+def _misaligned(x, offset):
+    """``x`` copied into storage starting ``offset`` floats in."""
+    store = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    y = store[offset:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("tile", [30, 96, 256, 1001])
+@pytest.mark.parametrize("chunk", [32, 100, 512, 1024])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lane_bwd_kernel_ragged_shapes(cuda_device, tile, chunk, offset):
+    """Kernel #4 at ragged tiles and chunks (threads a chunk rounded up to a
+    warp), items masking one lane, a few, or a whole chunk, empty runs (they
+    read 0), exact duplicate deposits, and hit rows and cotangents off
+    16-byte alignment (4-byte copies); against the twin summed in float64,
+    and two calls bit for bit."""
+    rng = np.random.default_rng(tile + chunk + offset)
+    n_tiles, n_blocks = 5, 7
+    Dp = n_blocks * chunk
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, Dp, cuda_device)
+    dep_packed[:, 1::5] = dep_packed[:, :1]             # exact duplicates of lane 0
+    u = torch.as_tensor(rng.uniform(0, 1, (n_tiles * tile, 3)).astype(np.float32),
+                        device=cuda_device)
+    packed, u = _misaligned(packed, offset), _misaligned(u, offset)
+    items = _bwd_items(rng, n_blocks, chunk, n_tiles, cuda_device)
+    args = (*items, packed, u, dep_packed, tile)
+    want = deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    assert float(want.sum()) > 10
+    before = lane_kernel.BACKWARD.launches
+    got = deposit_lane_bwd(*args, chunk)
+    again = deposit_lane_bwd(*args, chunk)
+    torch.cuda.synchronize()
+    assert lane_kernel.BACKWARD.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    lanes = got.reshape(3, n_blocks, chunk)
+    assert float(lanes[:, [1, 3]].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("tile", [32, 256, 1001])
+def test_lane_bwd_kernel_under_a_cut_cap(cuda_device, tile):
+    """Kernel #4 on DepositLane.backward_items cut by a work cap at half its
+    items (W' = work_cap + K n_tiles): chunks lose items of their runs,
+    empty runs read 0, and the sums match the twin summed in float64."""
+    hp, dep = _wall_case(np.random.default_rng(7), 20000, 200000, cuda_device)
+    pd = DepositLane(**dict(LANE_KW, tile=tile, chunk=256, work_cap=1 << 20))
+    prep = pd.prepare(hp)
+    packed = prep.packed.clone()
+    packed[prep.g, 6] = torch.where(hp.valid, hp.r2, -1.0)
+    n_tiles = packed.shape[0] // tile
+    dkeys, dep_packed, Dp = pd._dep_sorted(dep, pd.chunk)
+    sk, ek = pd._window_lanes(prep, dkeys, n_tiles)
+    full = pd.backward_items(sk, ek, n_tiles, Dp)
+    pd.work_cap = int(full[1][-1]) // 2 - len(pd.win_offs) * n_tiles
+    items = pd.backward_items(sk, ek, n_tiles, Dp)
+    assert 0 < int(items[1][-1]) < int(full[1][-1])
+    assert bool(((items[1] - items[0]) < (full[1] - full[0])).any())
+    u = torch.rand((packed.shape[0], 3), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    args = (*items, packed, u, dep_packed, tile)
+    want = deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    assert float(want.sum()) > 0
+    got = deposit_lane_bwd(*args, pd.chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    empty = (items[1] == items[0]).repeat_interleave(pd.chunk)
+    assert bool(empty.any()) and float(got[:, empty].abs().sum()) == 0.0
+
+
+def test_lane_bwd_kernel_repeats_bitwise_at_the_train_size(cuda_device):
+    """Kernel #4 on the train path's sizes: no atomics, so two calls agree
+    bit for bit, and both agree with the twin summed in float64."""
+    pd, packed, dep_packed, sk, ek, n_tiles, Dp, *_ = _lane_round("main", cuda_device)
+    items = pd.backward_items(sk, ek, n_tiles, Dp)
+    u = torch.rand((packed.shape[0], 3), generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device)
+    args = (*items, packed, u, dep_packed, pd.tile)
+    a = deposit_lane_bwd(*args, pd.chunk)
+    b = deposit_lane_bwd(*args, pd.chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    want = deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    assert float(want.sum()) > 0
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+
+
+def test_lane_kernels_refuse_a_foreign_geometry(cuda_device):
+    """Kernel #3 launches with deposit_geometry(tile, 1) and kernel #4 with
+    lane_bwd_geometry, each one block a part of its runs; their plans of the
+    parts equal run_parts'.  Each refuses any other geometry (threads, shared
+    memory), no items a part, a block count other than parts_bound, or a Dp
+    that is not n_blocks chunks, with cudaErrorInvalidValue (1)."""
+    rng = np.random.default_rng(2)
+    tile, n_tiles, K, dp = 96, 3, 4, 2048
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, dp, cuda_device)
+    lo, hi, wa, wb = _lane_items(*_ragged_intervals(rng, n_tiles, K, dp, cuda_device),
+                                 cuda_device)
+    g = deposit_geometry(tile, lane_kernel.LANE_GRID_SPLITS)
+    per, W = lane_kernel.LANE_ITEMS_PER_BLOCK, wa.shape[0]
+    want_run, want_end = lane_kernel.run_parts(lo, hi, per, W)
+    n_parts = lane_kernel.parts_bound(n_tiles, per, W)
+    part_run = torch.full((n_parts,), -1, dtype=torch.int32, device=cuda_device)
+    part_end = torch.full((n_tiles,), -1, dtype=torch.int32, device=cuda_device)
+    out = torch.empty((n_tiles * tile, 8), dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty((n_parts, tile, 4), dtype=torch.float32, device=cuda_device)
+    launch = lambda threads, splits, smem, n_parts=n_parts, per_=per: \
+        lane_kernel.FORWARD.launch(
+            cuda_device, ptr(lo), ptr(hi), n_tiles, tile, ptr(wa), ptr(wb), ptr(packed),
+            ptr(dep_packed), dp, ptr(out), threads, splits, smem, ptr(scratch), ptr(part_run),
+            ptr(part_end), n_parts, W, per_)
+    launch(g.threads, g.splits, g.shared_bytes)
+    torch.cuda.synchronize()
+    assert torch.equal(part_run, want_run) and torch.equal(part_end, want_end)
+    _assert_deposit_equal(out, deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed,
+                                                  sum_dtype=torch.float64))
+    for bad in [dict(threads=g.threads - 1, splits=g.splits, smem=g.shared_bytes),
+                dict(threads=g.threads + g.slot_threads, splits=g.splits + 1,
+                     smem=g.shared_bytes),
+                dict(threads=g.threads, splits=g.splits, smem=g.shared_bytes - 4),
+                dict(threads=g.threads, splits=g.splits, smem=g.shared_bytes, per_=0),
+                dict(threads=g.threads, splits=g.splits, smem=g.shared_bytes,
+                     n_parts=n_parts - 1)]:
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            launch(**bad)
+
+    chunk, n_blocks = 100, 4
+    Dp = chunk * n_blocks
+    dep_packed = dep_packed[:, :Dp].contiguous()
+    u = torch.rand((n_tiles * tile, 3), device=cuda_device)
+    items = _bwd_items(rng, n_blocks, chunk, n_tiles, cuda_device)
+    gb = lane_kernel.lane_bwd_geometry(tile, chunk)
+    per, W = lane_kernel.LANE_BWD_ITEMS_PER_BLOCK, items[2].shape[0]
+    want_run, want_end = lane_kernel.run_parts(items[0], items[1], per, W)
+    n_parts = lane_kernel.parts_bound(n_blocks, per, W)
+    part_run = torch.full((n_parts,), -1, dtype=torch.int32, device=cuda_device)
+    part_end = torch.full((n_blocks,), -1, dtype=torch.int32, device=cuda_device)
+    d_out = torch.empty((3, Dp), dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty((n_parts, 3, chunk), dtype=torch.float32, device=cuda_device)
+    bwd = lambda threads, smem, dp_=Dp, n_parts=n_parts, per_=per: \
+        lane_kernel.BACKWARD.launch(
+            cuda_device, *(ptr(x) for x in items[:2]), n_blocks, chunk,
+            *(ptr(x) for x in items[2:]), tile, ptr(packed), ptr(u), ptr(dep_packed), dp_,
+            ptr(d_out), threads, smem, ptr(scratch), ptr(part_run), ptr(part_end), n_parts,
+            W, per_)
+    bwd(gb.threads, gb.shared_bytes)
+    torch.cuda.synchronize()
+    assert torch.equal(part_run, want_run) and torch.equal(part_end, want_end)
+    torch.testing.assert_close(d_out, deposit_lane_bwd_plain(
+        *items, packed, u, dep_packed, tile, sum_dtype=torch.float64), rtol=1e-5, atol=1e-5)
+    for bad in [dict(threads=gb.threads - 32, smem=gb.shared_bytes),
+                dict(threads=gb.threads + 32, smem=gb.shared_bytes),
+                dict(threads=gb.threads, smem=gb.shared_bytes - 4),
+                dict(threads=gb.threads, smem=gb.shared_bytes + 4),
+                dict(threads=gb.threads, smem=gb.shared_bytes, dp_=Dp + chunk),
+                dict(threads=gb.threads, smem=gb.shared_bytes, per_=0),
+                dict(threads=gb.threads, smem=gb.shared_bytes, n_parts=n_parts + 1)]:
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            bwd(**bad)
+
+
+@pytest.mark.parametrize("per_block", [1, 2, 3, 7])
+def test_lane_plan_equals_run_parts_over_many_runs(cuda_device, per_block):
+    """The kernels' one-block plan of the parts (a scan over rounds of 1024
+    runs) against run_parts on 5000 runs, ragged and with empty runs: taken
+    from kernel #3's launch on empty masks."""
+    rng = np.random.default_rng(per_block)
+    n = rng.choice([0, 0, 1, 2, 3, 5, 9, 28, 300], 5000)
+    hi = np.cumsum(n)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=cuda_device)
+    lo, hi = i32(hi - n), i32(hi)
+    W = int(hi[-1])
+    wa = wb = torch.zeros((W,), dtype=torch.int32, device=cuda_device)
+    tile, n_tiles = 32, 5000
+    packed, dep_packed = _box_slots_and_lanes(rng, n_tiles * tile, 512, cuda_device)
+    g = deposit_geometry(tile, 1)
+    n_parts = lane_kernel.parts_bound(n_tiles, per_block, W)
+    plan = torch.full((n_parts + n_tiles,), -1, dtype=torch.int32, device=cuda_device)
+    out = torch.empty((n_tiles * tile, 8), dtype=torch.float32, device=cuda_device)
+    scratch = torch.empty((n_parts, tile, 4), dtype=torch.float32, device=cuda_device)
+    lane_kernel.FORWARD.launch(cuda_device, ptr(lo), ptr(hi), n_tiles, tile, ptr(wa), ptr(wb),
+                               ptr(packed), ptr(dep_packed), 512, ptr(out), g.threads,
+                               g.splits, g.shared_bytes, ptr(scratch), ptr(plan),
+                               ptr(plan[n_parts:]), n_parts, W, per_block)
+    torch.cuda.synchronize()
+    want_run, want_end = lane_kernel.run_parts(lo, hi, per_block, W)
+    assert torch.equal(plan[:n_parts], want_run) and torch.equal(plan[n_parts:], want_end)
+    assert float(out.abs().sum()) == 0.0

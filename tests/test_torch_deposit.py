@@ -26,7 +26,7 @@ from torch_port_util import wall_case as _wall_case
 from raytrace3_tpu.ops.deposit_pallas import PallasDepositTile
 from raytrace3_tpu.render.deposit import deposit_bruteforce as j_bruteforce
 
-from raytrace3_tpu_torch.ops import deposit_kernel
+from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel
 from raytrace3_tpu_torch.ops.deposit_kernel import (DepositTile, deposit_tile,
                                                     deposit_tile_plain,
                                                     make_tile_deposit)
@@ -149,6 +149,21 @@ def test_launch_geometry_covers_every_slot_once():
             assert sorted(slots) == list(range(tile))
     with pytest.raises(ValueError):
         deposit_kernel.deposit_geometry(1025)
+
+
+def test_launch_geometry_takes_the_kernels_grid_splits():
+    """deposit_geometry's grid splits are each kernel's: GRID_SPLITS for the
+    tile, block and stream deposits, one for the lane deposit (its blocks
+    follow the parts of each tile's run); the rest of the geometry does not
+    depend on them, and fewer than one is refused."""
+    for tile in (30, 128, 256, 1024):
+        g8 = deposit_kernel.deposit_geometry(tile)
+        g1 = deposit_kernel.deposit_geometry(tile, lane_kernel.LANE_GRID_SPLITS)
+        assert g8.gsplits == deposit_kernel.GRID_SPLITS and g1.gsplits == 1
+        assert (g1.threads, g1.splits, g1.shared_bytes) == (g8.threads, g8.splits,
+                                                            g8.shared_bytes)
+    with pytest.raises(ValueError):
+        deposit_kernel.deposit_geometry(256, 0)
 
 
 def test_launch_geometry_constants_match_the_header():

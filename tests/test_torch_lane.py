@@ -12,6 +12,9 @@ a matmul's order); gradients rtol 1e-5 / atol 1e-6 (tests/test_deposit.py:
 320-379).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,3 +238,128 @@ def test_lane_twins_steps_and_transpose(rng):
     rhs = float((d.T.double() * dep_packed[6:9].T.double()).sum())
     np.testing.assert_allclose(lhs, rhs, rtol=1e-5)
     assert float(out[:, 0].sum()) > 20
+
+
+def _cu_constants(name):
+    src = (Path(lane_kernel.__file__).parent.parent / "csrc" / name).read_text()
+    return {k: eval(v, {}) for k, v in re.findall(r"constexpr int (k\w+) = ([\d *]+);", src)}
+
+
+def test_lane_bwd_geometry_constants_match_the_source():
+    """The wrapper's copies of csrc/deposit_lane_bwd.cu's constants are the
+    source's (the kernel refuses any other geometry at launch)."""
+    consts = _cu_constants("deposit_lane_bwd.cu")
+    want = {"kBwdMaxTile": lane_kernel.LANE_BWD_MAX_TILE,
+            "kBwdMaxChunk": lane_kernel.LANE_BWD_MAX_CHUNK,
+            "kBwdMaxThreads": lane_kernel.LANE_BWD_MAX_THREADS,
+            "kBwdMaxItems": lane_kernel.LANE_BWD_MAX_ITEMS,
+            "kBwdMaxSharedBytes": lane_kernel.LANE_BWD_MAX_SHARED_BYTES,
+            "kBwdMaxGroups": lane_kernel.LANE_BWD_MAX_GROUPS}
+    assert {k: consts.get(k) for k in want} == want
+    assert 1 <= lane_kernel.LANE_BWD_ITEMS_PER_BLOCK <= lane_kernel.LANE_BWD_MAX_ITEMS
+
+
+@pytest.mark.parametrize("tile", [1, 30, 32, 96, 256, 1000, 1024])
+def test_lane_bwd_geometry_fits_every_chunk(tile):
+    """Kernel #4's geometry for every chunk (1..1024): the chunk rounded up
+    to a warp, and shared memory for the part's tiles (packed rows, u rows
+    padded to float4s), three strides of partial sums (one a virtual
+    thread: at most the block or the part's lanes) and the chunk's lanes,
+    within an H100 block's opt-in limit."""
+    k = lane_kernel.LANE_BWD_ITEMS_PER_BLOCK
+    for chunk in range(1, 1025):
+        g = lane_kernel.lane_bwd_geometry(tile, chunk)
+        assert g.threads % 32 == 0 and chunk <= g.threads < chunk + 32
+        assert g.items_per_block == k and g.partial_stride == max(g.threads, k * chunk)
+        tiles = k * (tile * 8 + 4 * ((3 * tile + 3) // 4))
+        assert g.shared_bytes == 4 * (tiles + 3 * g.partial_stride + 6 * chunk)
+        assert g.shared_bytes <= lane_kernel.LANE_BWD_MAX_SHARED_BYTES
+    for bad in [(0, 512), (1025, 512), (tile, 0), (tile, 1025)]:
+        with pytest.raises(ValueError):
+            lane_kernel.lane_bwd_geometry(*bad)
+
+
+@pytest.mark.parametrize("tile", [1, 7, 30, 256, 1001])
+def test_lane_bwd_thread_map_tests_every_pair_once(tile):
+    """Kernel #4's map of a block's threads onto a part's items: their
+    masked lanes laid end to end (L in all), G = max(1, min(T // L, tile,
+    16)) groups, virtual threads v = t, t + T, ... below G L, v = g L + q
+    testing lane q against rows g, g + G, ... of its item's tile.  Every
+    (item, lane, row) is tested by exactly one virtual thread."""
+    rng = np.random.default_rng(tile)
+    for chunk in (32, 100, 512, 1024):
+        g = lane_kernel.lane_bwd_geometry(tile, chunk)
+        for _ in range(12):
+            m = int(rng.integers(1, g.items_per_block + 1))
+            n = [int(x) for x in rng.choice([0, 1, 2, 5, 31, 33, chunk // 3, chunk], m)
+                 if x <= chunk]
+            L = sum(n)
+            G = g.groups(L)
+            if L == 0:
+                assert G == 0
+                continue
+            assert 1 <= G <= min(tile, lane_kernel.LANE_BWD_MAX_GROUPS)
+            assert G * L <= max(g.threads, L) <= g.partial_stride
+            seen = [np.zeros((ni, tile), np.int64) for ni in n]
+            for v in range(G * L):
+                grp, q = divmod(v, L)
+                i = 0
+                while q >= n[i]:
+                    q -= n[i]
+                    i += 1
+                seen[i][q, grp::G] += 1
+            assert all((x == 1).all() for x in seen), (chunk, n)
+
+
+@pytest.mark.parametrize("per_block", [1, 2, 3, 4, 7])
+def test_run_parts_cut_every_run_in_order(per_block):
+    """run_parts: every run cut into max(1, ceil(n / per_block)) parts; the
+    parts, in block order, take each run's items once and in order (as the
+    kernels compute a part's items); spare blocks beyond the list's parts
+    are marked with the run count."""
+    rng = np.random.default_rng(per_block)
+    n = rng.choice([0, 0, 1, 2, 3, 5, 9, 28], 40)
+    hi = np.cumsum(n)
+    lo = hi - n
+    W = int(hi[-1]) + 11
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32))
+    part_run, part_end = lane_kernel.run_parts(i32(lo), i32(hi), per_block, W)
+    assert part_run.dtype == part_end.dtype == torch.int32
+    assert part_run.shape[0] == len(n) + -(-W // per_block)
+    parts = np.maximum(1, -(-n // per_block))
+    np.testing.assert_array_equal(part_end.numpy(), np.cumsum(parts))
+    taken = {r: [] for r in range(len(n))}
+    for j, r in enumerate(part_run.tolist()):
+        if r == len(n):
+            assert j >= int(part_end[-1])
+            continue
+        p = j - (int(part_end[r]) - parts[r])
+        a = lo[r] + p * per_block
+        taken[r] += list(range(a, min(a + per_block, hi[r])))
+    for r in range(len(n)):
+        assert taken[r] == list(range(lo[r], hi[r]))
+    assert (part_run.numpy()[int(part_end[-1]):] == len(n)).all()
+
+
+def test_lane_twins_sum_in_float64(rng):
+    """Both lane twins with their sums taken in float64 (the witness the
+    kernels are held to on the card): the same counts, and flux within
+    float32 rounding of the float32 twins."""
+    pd, prep, packed, pdep = _round_inputs(rng)
+    n_tiles = packed.shape[0] // pd.tile
+    dkeys, dep_packed, Dp = pd._dep_sorted(pdep, pd.chunk)
+    sk, ek = pd._window_lanes(prep, dkeys, n_tiles)
+    lo, hi, wa, wb, _ = pd.forward_items(sk, ek, n_tiles, Dp)
+    a = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed)
+    b = deposit_lane_plain(lo, hi, wa, wb, packed, dep_packed, sum_dtype=torch.float64)
+    assert b.dtype == torch.float32 and float(a[:, 0].sum()) > 20
+    np.testing.assert_array_equal(b[:, 0].numpy(), a[:, 0].numpy())
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-6)
+    items = pd.backward_items(sk, ek, n_tiles, Dp)
+    u = torch.as_tensor(np.random.default_rng(4).uniform(size=(packed.shape[0], 3)),
+                        dtype=torch.float32)
+    args = (*items, packed, u, dep_packed, pd.tile)
+    c = deposit_lane_bwd_plain(*args)
+    d = deposit_lane_bwd_plain(*args, sum_dtype=torch.float64)
+    assert d.dtype == torch.float32 and float(c.sum()) > 0
+    np.testing.assert_allclose(d.numpy(), c.numpy(), rtol=1e-5, atol=1e-6)
