@@ -7,11 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the port's six CUDA kernels from ``raytrace3_tpu_torch/csrc/``
 and drives the port's four paths: the render pass, the train step, the CLI
-and the stream deposit's pass.  The render path is the bench
-configuration of ``bench.py`` (scene ``full``, 512 x 512, 16 rounds x
-131072 photons, depth 13, regen walk, Bezier compaction 0.09 / 0.05, the
-staged eye schedule, the tile deposit at tile 256 with 1-D banding, Newton
-at 8 restarts x 10 iterations).  The train path is
+and the stream deposit's pass.  The render path is the port bench's
+(``bench_torch.py``: ``bench.py``'s configuration, scene ``full``, 512 x
+512, 16 rounds x 131072 photons, depth 13, regen walk, Bezier compaction
+0.09 / 0.05, the staged eye schedule, the tile deposit at tile 256 with
+1-D banding, Newton at 8 restarts x 10 iterations).  The train path is
 ``scripts/perf_trainstep.py``'s (scene ``full``, 256 x 256, 4 rounds x 32768
 photons, depth 13, atlas 64, Bezier compaction 0.12, hit-point factor 1.5,
 the slot eye wavefront and the static photon walk, the differentiable lane
@@ -34,8 +34,10 @@ with a non-zero exit when it fails:
   4. a small pass (32 x 32, 2 x 1024 photons) on the card against the same
      pass on the CPU (the plain twins) with the same draws, held to it one
      walk segment at a time (``raytrace3_tpu_torch.testing``);
-  5. the render path: ``build_scene`` + ``make_pass_fn``, one warm pass and
-     timed passes, with the kernels' launch counters read around them;
+  5. the render path: the port bench's own measurement
+     (``bench_torch.measure`` at ``bench_torch.py``'s defaults: one first
+     pass and 4 timed passes), with the kernels' launch counters read around
+     it and the bench's JSON record printed;
   6. the lane deposit kernel against its plain twin on one train round
      (14 x 32768 deposits against the 256^2 hit-point layout), the flux held
      to the twin summed in float64, with its launch geometry, items per
@@ -49,7 +51,8 @@ with a non-zero exit when it fails:
   9. the train path: ``build_scene`` + ``make_train_step`` at full width,
      one warm step and timed steps from half the true albedos toward a
      target rendered at the true ones, with the launch counters read
-     around them;
+     around them; then its params and Adam state through ``save_tree`` /
+     ``load_tree`` on the card, restored bit for bit;
  10. the block deposit kernel (#5) against its plain twin at the
      ``reference1024`` preset's shapes: the 1024^2 eye pass with the
      preset's schedule and one regen round (14 x 131072 deposits) through
@@ -65,7 +68,19 @@ with a non-zero exit when it fails:
      summed in float64, with its launch geometry, as phases 3 and 10) and the
      coarse-z ``DepositZTile`` against ``DepositTile`` on phase 3's bench
      round, and one 512^2 pass through ``make_pass_fn`` with
-     ``DepositStream``.
+     ``DepositStream``;
+ 13. the K-slot eye wavefront: a 64 x 64 pass at 2 slots a pixel (2 x 1024
+     photons, the Newton kernel) on the card against the same pass on the
+     CPU with the same draws, held segment by segment as phase 4 holds its
+     pass;
+ 14. deposit compaction on phase 3's bench round: at a fraction above the
+     valid share the tile deposit's counts equal the uncompacted round's
+     and its flux agrees to DEPOSIT_FLUX_RTOL; at a fraction that cuts,
+     the drop count is valid - cap exactly;
+ 15. the Epanechnikov deposit on the card against the CPU at the
+     finite-difference test's size (forward, and gradients w.r.t. deposit
+     positions, hit positions and r2), and the peak memory of one train
+     step at 64^2 through ``deposit_bruteforce_epa``.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -77,11 +92,11 @@ non-zero before printing either.  It imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -90,18 +105,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-#: The bench's main-path settings (bench.py:109-119).
-BENCH = dict(scene="full", width=512, height=512, passes=1, rounds=16,
-             photons_per_round=131072, max_depth=13, atlas_res=128,
-             bezier_compact_frac=0.09, bezier_compact_frac_photon=0.05,
-             newton_iters=10, hitpoint_factor=1.3, photon_regen=True,
-             eye_compact_schedule=((1, 0.25), (4, 0.04), (6, 0.02)))
-RESTARTS = 8
-TILE = 256
-BASE = np.array([50.0, 35.0, 230.0])                 # main.cpp:24
-LOOK = BASE + np.array([0.0, 0.042612, -1.0])        # main.cpp:27
-BOUNDS = ("x_lo", "x_hi", "y_lo", "y_hi")
-TIMED_PASSES = 2
+# The main path and its settings are the port bench's (bench.py:109-119).
+import bench_torch
+from bench_torch import BASE, BENCH, BOUNDS, LOOK, RESTARTS, TILE
+
 #: Newton: the kernel evaluates in the plain twin's operation order with
 #: -fmad=false, so hits, patch ids and t, u, v must agree bit for bit.
 NEWTON_ATOL = 0.0
@@ -171,16 +178,19 @@ CLI_PASSES = 3
 RESUME_ARGS = ["--scene", "full", "--res", "64", "--deposit", "pallas", "--pallas",
                "--preview-every", "0"]
 RESUME_L1_RTOL = 1e-6
+#: Phase 13: the K-slot pass, phase 4's cut of the bench at 64^2 with the
+#: slot wavefront at 2 slots (the staged schedule needs one slot).
+KSLOT = dict(BENCH, width=64, height=64, rounds=2, photons_per_round=1024, atlas_res=32,
+             slots=2, eye_compact_schedule=())
+#: Phase 15: the Epanechnikov deposit, card against CPU: counts exact, flux
+#: to EPA_FLUX_RTOL and gradients to EPA_GRAD_ATOL of each one's largest
+#: (tests/test_torch_epa.py's bounds against JAX); the train step at 64^2.
+EPA_FLUX_RTOL = 1e-5
+EPA_GRAD_ATOL = 1e-4
+EPA_TRAIN = dict(TRAIN, width=64, height=64)
 #: Phase 12: the round-3 deposit sweep's stream configuration
 #: (scripts/perf_deposit_sweep.py:110-122, ``str1d_t128_ch1024``).
 STREAM = dict(tile=128, chunk=1024, work_cap=65536, bucket2d=False)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -532,37 +542,19 @@ def phase_small(device) -> None:
 
 
 def phase_main(card: str, device) -> dict:
-    """The main path at the bench configuration; returns launch counts."""
-    from raytrace3_tpu_torch.render.eye import eye_stage_widths
-
-    cfg, scene, fn = make_pass(BENCH, device)
-    gen = torch.Generator(device=device).manual_seed(0)
+    """The main path: the port bench's measurement at its defaults; returns
+    launch counts."""
     zero_counters()
-    t0 = time.perf_counter()
-    img, stats = fn(gen)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    emitted = []
-    for _ in range(TIMED_PASSES):
-        img, stats = fn(gen)
-        emitted.append(stats["photons_emitted"])
-    torch.cuda.synchronize()
-    pass_s = (time.perf_counter() - t0) / TIMED_PASSES
+    record, img = bench_torch.measure(bench_torch.knobs({}))
     launches = read_counters()
-
-    photons = float(torch.stack(emitted).mean())
-    eye_rays = sum(s * w for s, w in eye_stage_widths(
-        cfg.n_pixels, cfg.eye_compact_schedule, cfg.max_depth))
-    photon_rays = cfg.rounds * (cfg.max_depth + 1) * cfg.photons_per_round
-    st = {k: float(v) for k, v in stats.items()}
-    print(f"[5] main path {cfg.width}x{cfg.height}, {cfg.rounds} x "
-          f"{cfg.photons_per_round} photons: first pass {warm_s:.2f} s, "
-          f"{pass_s:.3f} s/pass, {photons / pass_s:.0f} photons/s, "
-          f"{(eye_rays + photon_rays) / pass_s / 1e6:.2f} Mrays/s ({card})")
-    print(f"[5] stats {st}; launches {launches}")
-    ok = (st["deposits_dropped"] == 0 and st["dropped"] == 0 and st["count"] > 0
-          and tuple(img.shape) == (cfg.height, cfg.width, 3)
+    print(f"[5] bench_torch record: {json.dumps(record)}")
+    print(f"[5] main path {record['pass_seconds']:.3f} s/pass, {record['value']:.0f} photons/s, "
+          f"{record['mrays_per_s']:.2f} Mrays/s, first pass {record['compile_seconds']} s; "
+          f"launches {launches} ({card})")
+    ok = (record["deposits_dropped"] == 0 and record["eye_dropped"] == 0
+          and record["hitpoints"] > 0 and record["backend"] == "cuda"
+          and record["pallas_newton"] and record["card"] == card
+          and tuple(img.shape) == (512, 512, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
           and launches["newton"] > 0 and launches["deposit_tile"] > 0)
     if not ok:
@@ -829,6 +821,25 @@ def phase_train(card: str, device) -> dict:
           and all(launches[k] > 0 for k in train_kernels))
     if not ok:
         raise SystemExit("phase 9 failed: the train path's result or launches are wrong")
+
+    from raytrace3_tpu_torch.diff.train import load_optimizer_tree, optimizer_tree
+    from raytrace3_tpu_torch.utils.checkpoint import flatten_tree, load_tree, save_tree
+
+    live = {"params": params, "opt": optimizer_tree(opt, params)}
+    fresh = {k: torch.zeros_like(v) for k, v in params.items()}
+    template = {"params": fresh, "opt": optimizer_tree(init_fn(fresh), fresh)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.npz")
+        save_tree(path, live, step=1 + TIMED_STEPS)
+        restored, step = load_tree(path, template)
+    flat_l, flat_r = flatten_tree(live), flatten_tree(restored)
+    same = [k for k, v in flat_l.items() if flat_r[k].device == v.device
+            and flat_r[k].dtype == v.dtype and torch.equal(flat_r[k], v.detach())]
+    load_optimizer_tree(init_fn(fresh), fresh, restored["opt"])
+    print(f"[9] save_tree / load_tree of the params and Adam state on the card: "
+          f"{len(same)} of {len(flat_l)} leaves bit for bit, step {step}")
+    if len(same) != len(flat_l) or step != 1 + TIMED_STEPS:
+        raise SystemExit("phase 9 failed: the train state did not restore bit for bit")
     return launches
 
 
@@ -1043,10 +1054,169 @@ def phase_stream(card: str, device, deps) -> tuple[dict, dict]:
     return row, launches
 
 
+def phase_kslot(card: str, device) -> None:
+    """A 64 x 64 pass at 2 eye slots a pixel on the card held to the CPU's,
+    same draws, as phase 4; the Newton kernel's launches counted."""
+    from raytrace3_tpu_torch.core.sampling import (GeneratorDraws, RecordingDraws,
+                                                   ReplayDraws)
+    from raytrace3_tpu_torch.testing import (MAX_FLIPS, pinned_segments,
+                                             recording_segments)
+
+    draws = RecordingDraws(GeneratorDraws(torch.Generator().manual_seed(5)))
+    _, _, fn_cpu = make_pass(KSLOT, "cpu")
+    with recording_segments() as steps:
+        img_c, st_c = fn_cpu(draws)
+    _, _, fn_gpu = make_pass(KSLOT, device)
+    zero_counters()
+    with pinned_segments(steps["eye"], steps["photon"]) as report:
+        img_g, st_g = fn_gpu(ReplayDraws(draws.arrays, device=device))
+    launches = read_counters()
+    lanes = steps["eye"][0][0][4].numel()
+    img_g, img_c = img_g.cpu().numpy(), img_c.numpy()
+    st_g = {k: float(v) for k, v in st_g.items()}
+    st_c = {k: float(v) for k, v in st_c.items()}
+    l1 = float(np.abs(img_g - img_c).sum() / np.abs(img_c).sum())
+    print(f"[13] K-slot pass card vs cpu, 2 slots ({lanes} eye lanes), held segment by "
+          f"segment: {report.segments} segments, lanes per class {report.lanes}; launches "
+          f"{launches}")
+    print(f"[13] stats card {st_g}\n[13] stats cpu  {st_c}\n[13] image relative L1 {l1:.3g}")
+    ok = (report.segments == {"eye": len(steps["eye"]), "photon": len(steps["photon"])}
+          and lanes == 2 * KSLOT["width"] * KSLOT["height"]
+          and report.lanes["self-hit flip"] <= MAX_FLIPS
+          and all(st_g[k] == st_c[k] for k in
+                  ("count", "dropped", "deposits_dropped", "photons_emitted"))
+          and np.isfinite(img_g).all() and st_c["count"] > 3600 and l1 <= SMALL_L1_RTOL
+          and launches["newton"] > 0)
+    if not ok:
+        raise SystemExit("phase 13 failed: the card's K-slot pass disagrees with the CPU's")
+
+
+def phase_compaction(card: str, device, deps) -> None:
+    """``sppm.compact_round`` on phase 3's bench round through the tile
+    deposit: a fraction above the valid share keeps every deposit, one
+    below it drops valid - cap exactly."""
+    from raytrace3_tpu_torch.ops.deposit_kernel import (make_tile_deposit,
+                                                        world_bounds_from_scene)
+    from raytrace3_tpu_torch.render.sppm import compact_round
+
+    _, scene, hp, _ = bench_hitpoints(device)
+    b = world_bounds_from_scene(scene, extra_points=[BASE])
+    dep_fn = make_tile_deposit(tile=TILE, **{k: b[k] for k in BOUNDS})
+    D, nv = deps.valid.shape[0], int(deps.valid.sum())
+    share = nv / D
+    out = lambda d: torch.cat([c[:, None] if c.dim() == 1 else c
+                               for c in dep_fn(hp, d)[:2]], 1)
+    want = out(deps)
+    keep_frac, cut_frac = min(share + 0.05, 0.99), share / 2
+    kept, kept_drops = compact_round(deps, keep_frac)
+    got = out(kept)
+    cnt_mismatch, rel, _ = compare_deposit(got, want)
+    cut, cut_drops = compact_round(deps, cut_frac)
+    cap = max(int(D * cut_frac), 128)
+    out(cut)
+    print(f"[14] compaction on the bench round: {nv} valid of {D} deposits (share "
+          f"{share:.4f}); at {keep_frac:.4f}: {kept.valid.shape[0]} records, dropped "
+          f"{int(kept_drops)}, count mismatches {cnt_mismatch}, max relative flux error "
+          f"{rel:.3g}; at {cut_frac:.4f}: cap {cap}, dropped {int(cut_drops)} (valid - cap "
+          f"= {nv - cap}), kept valid {int(cut.valid.sum())} ({card})")
+    if (int(kept_drops) != 0 or cnt_mismatch or not rel <= DEPOSIT_FLUX_RTOL
+            or int(cut_drops) != nv - cap or int(cut.valid.sum()) != cap
+            or kept.valid.shape[0] >= D or float(want[:, 0].sum()) == 0):
+        raise SystemExit("phase 14 failed: the compacted deposit disagrees or miscounts")
+
+
+def _epa_case(seed: int = 0, C: int = 60, D: int = 200):
+    """tests/test_torch_epa.py's dense case (60 hit points, 200 deposits in
+    a 10^3 box), drawn with numpy."""
+    from raytrace3_tpu_torch.core.types import Deposits, make_hitpoints
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)
+    hp = make_hitpoints(C, 2.0, "cpu", torch.float32).replace(
+        pos=f(rng.uniform(0, 10, (C, 3))), n=f(unit(rng.normal(size=(C, 3)))),
+        wgt=f(rng.uniform(0, 1, (C, 3))), valid=torch.as_tensor(rng.uniform(size=C) > 0.1),
+        r2=f(rng.uniform(0.5, 2.0, C)))
+    dep = Deposits(pos=f(rng.uniform(0, 10, (D, 3))), n=f(unit(rng.normal(size=(D, 3)))),
+                   flux=f(rng.uniform(0, 5, (D, 3))),
+                   valid=torch.as_tensor(rng.uniform(size=D) > 0.2))
+    return hp, dep
+
+
+def epa_grads(hp, dep, device):
+    """(count, d_tao, gradients w.r.t. deposit positions, hit positions, r2)
+    of a weighted sum of the Epanechnikov deposit's flux on ``device``."""
+    from raytrace3_tpu_torch.render.deposit import deposit_bruteforce_epa
+
+    to = lambda rec: rec.replace(**{f.name: getattr(rec, f.name).to(device)
+                                    for f in dataclasses.fields(rec)})
+    hp, dep = to(hp), to(dep)
+    args = [x.clone().requires_grad_(True) for x in (dep.pos, hp.pos, hp.r2)]
+    cnt, tao = deposit_bruteforce_epa(hp.replace(pos=args[1], r2=args[2]),
+                                      dep.replace(pos=args[0]), chunk=128)
+    w = 0.5 + 0.01 * torch.arange(tao.numel(), dtype=tao.dtype, device=device).reshape(tao.shape)
+    grads = torch.autograd.grad((tao * w).sum(), args)
+    return [x.detach().cpu() for x in (cnt, tao, *grads)]
+
+
+def phase_epa(card: str, device) -> None:
+    """The Epanechnikov deposit: card against CPU, then one 64^2 train step
+    through it with its peak memory."""
+    from raytrace3_tpu_torch.diff.train import extract_params, make_train_step
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render.deposit import deposit_bruteforce_epa
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    hp, dep = _epa_case()
+    got, want = epa_grads(hp, dep, device), epa_grads(hp, dep, "cpu")
+    cnt_ok = torch.equal(got[0], want[0])
+    flux_rel = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-30))[want[1] > 0].max())
+    grad_err = {n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(("dpos", "hpos", "r2"), got[2:], want[2:])}
+    print(f"[15] Epanechnikov deposit card vs cpu (60 hit points, 200 deposits): counts equal "
+          f"{cnt_ok}, max relative flux error {flux_rel:.3g}, gradients max |d| / max |g| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items()))
+    if (not cnt_ok or not flux_rel <= EPA_FLUX_RTOL or float(want[1].max()) <= 0
+            or not all(v <= EPA_GRAD_ATOL for v in grad_err.values())
+            or not all(float(w.abs().max()) > 0 for w in want[2:])):
+        raise SystemExit("phase 15 failed: the Epanechnikov deposit on the card disagrees "
+                         "with the CPU's")
+
+    cfg = RenderConfig(**EPA_TRAIN)
+    scene = build_scene(cfg, device)
+    init_fn, step_fn = make_train_step(scene, cfg, newton_fn=make_newton(cfg.newton_iters,
+                                                                          RESTARTS),
+                                       deposit_fn=deposit_bruteforce_epa)
+    params = extract_params(scene)
+    params["diff"] = params["diff"] * 0.5
+    opt = init_fn(params)
+    target = torch.full((cfg.height, cfg.width, 3), 0.5, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, _, loss, st = step_fn(params, opt, torch.Generator(device=device).manual_seed(0), target)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    gmax = {k: float(v.grad.abs().max()) for k, v in params.items()}
+    st = {k: int(v) for k, v in st.items()}
+    print(f"[15] train step at {cfg.width}x{cfg.height} ({cfg.rounds} x "
+          f"{cfg.photons_per_round} photons, C = {cfg.hitpoint_capacity}) through "
+          f"deposit_bruteforce_epa: {step_s:.3f} s, peak {peak_gb:.3f} GB above the inputs, "
+          f"loss {float(loss):.6g}, stats {st}, max |grad| {gmax} ({card})")
+    if (not np.isfinite(float(loss)) or st != {"deposits_dropped": 0, "dropped": 0}
+            or not all(np.isfinite(v) for v in gmax.values())
+            or not gmax["diff"] > 0 or not gmax["atlas"] > 0):
+        raise SystemExit("phase 15 failed: the Epanechnikov train step is wrong")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
     import raytrace3_tpu_torch  # noqa: F401  (TF32 off before any work)
+    from raytrace3_tpu_torch.core.device import card_line
 
     device = torch.device("cuda", 0)
     torch.set_num_threads(8)
@@ -1069,6 +1239,9 @@ def main() -> int:
     block = phase_block(card, device)
     cli_launches = phase_cli(card)
     stream, stream_launches = phase_stream(card, device, deps)
+    phase_kslot(card, device)
+    phase_compaction(card, device, deps)
+    phase_epa(card, device)
     # Each kernel's launches on each path, each path counted from 0: the
     # render pass (phase 5), the train step (phase 9), the CLI at
     # reference1024 (phase 11) and the stream deposit's pass (phase 12).

@@ -10,6 +10,8 @@ CPU unasked.  Tests and CPU users pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -25,3 +27,13 @@ def resolve_device(device) -> torch.device:
             "torch.cuda.is_available() is false: pass device='cpu' to run "
             "on the CPU")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (the first card's): the
+    context every number measured on it is written down with."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -15,7 +15,17 @@ MAX_DIST = 1e9
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum(-1)
+    """``a . b`` over the trailing axis of 3, summed x + y + z from the left.
+
+    Written out, not ``(a * b).sum(-1)``: the CPU's sum adds in this order,
+    a CUDA reduction kernel in another (30% of random inputs round
+    differently on an H100), and the sphere self-hit test turns on the last
+    ulps of ``L . L``, so a pass on the card would trap other eye rays in the
+    mirror sphere than the same pass on the CPU (ROADMAP.md, F3).  The
+    Newton kernel (csrc/newton.cu) sums in this order too.
+    """
+    x, y, z = (a * b).unbind(-1)
+    return x + y + z
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

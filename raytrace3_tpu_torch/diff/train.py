@@ -131,6 +131,31 @@ def adam(lr: float = 1e-2):
                                             eps=1e-8)
 
 
+def optimizer_tree(opt: torch.optim.Optimizer, params: dict) -> dict:
+    """The Adam state of ``opt`` over ``params`` (as :func:`make_train_step`'s
+    ``init_fn`` built it) as a tree for ``utils.checkpoint.save_tree``:
+    per parameter name its ``step``, ``exp_avg`` and ``exp_avg_sq``.  A
+    parameter not stepped yet gets zeros, the template
+    :func:`load_optimizer_tree` restores into."""
+    sd = opt.state_dict()
+    tree = {}
+    for name, i in zip(params, sd["param_groups"][0]["params"]):
+        p = params[name]
+        st = sd["state"].get(i) or {"step": torch.zeros((), dtype=torch.float32),
+                                    "exp_avg": torch.zeros_like(p),
+                                    "exp_avg_sq": torch.zeros_like(p)}
+        tree[name] = {k: st[k] for k in ("step", "exp_avg", "exp_avg_sq")}
+    return tree
+
+
+def load_optimizer_tree(opt: torch.optim.Optimizer, params: dict, tree: dict) -> None:
+    """Set ``opt``'s Adam state from an :func:`optimizer_tree` tree."""
+    sd = opt.state_dict()
+    sd["state"] = {i: {k: v.clone() for k, v in tree[name].items()}
+                   for name, i in zip(params, sd["param_groups"][0]["params"])}
+    opt.load_state_dict(sd)
+
+
 def make_train_step(scene: Scene, cfg: RenderConfig, optimizer=None,
                     camera_pose=None, newton_fn=None, deposit_fn=None):
     """(init_fn, step_fn) for inverse rendering.
@@ -144,7 +169,9 @@ def make_train_step(scene: Scene, cfg: RenderConfig, optimizer=None,
     place.  ``stats["deposits_dropped"]`` is the pass's dropped-flux
     counter: nonzero means the deposit work cap clipped real flux and its
     gradient, a configuration error.  ``stats["dropped"]`` is the eye
-    pass's.
+    pass's.  The train state saves and restores with
+    ``utils.checkpoint.save_tree`` / ``load_tree`` of ``{"params": params,
+    "opt": optimizer_tree(opt_state, params)}`` (:func:`load_optimizer_tree`).
     """
     if optimizer is None:
         optimizer = adam(1e-2)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.types import Record
-from ..core.vecmath import M_EPS, MAX_DIST, cross, normalize
+from ..core.vecmath import M_EPS, MAX_DIST, cross, dot, norm2, normalize
 from ..ops.compact import compact_indices
 from ..ops.solve3 import solve3_columns
 from .aabb import aabb_from_points, slab_test
@@ -127,7 +127,7 @@ def newton_patch_solve(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
     u = starts[:, 0].expand(R, B, G)
     v = starts[:, 1].expand(R, B, G)
     s0 = _grid_point(ctrl, u, v)
-    t = ((s0 - o) * d).sum(-1) / (d * d).sum(-1)
+    t = dot(s0 - o, d) / norm2(d)
     best_t = torch.full((R, B, G), MAX_DIST, dtype=org.dtype, device=org.device)
     best_u = torch.zeros_like(best_t)
     best_v = torch.zeros_like(best_t)
@@ -142,7 +142,7 @@ def newton_patch_solve(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
         t = torch.clamp(t + torch.where(ok, dt, 0.0), -1e4, 1e4)
         u = torch.clamp(u + torch.where(ok, du, 0.0), -8.0, 8.0)
         v = torch.clamp(v + torch.where(ok, dv, 0.0), -8.0, 8.0)
-        res2 = (((o + t[..., None] * d) - _grid_point(ctrl, u, v)) ** 2).sum(-1)
+        res2 = norm2((o + t[..., None] * d) - _grid_point(ctrl, u, v))
         accept = ((res2 < M_EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
                   & (v <= 1.0) & (t > M_EPS) & (t < best_t))
         best_t = torch.where(accept, t, best_t)
@@ -256,7 +256,7 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     def winner_normal(d, u, v, pid):
         su, sv = patch_tangents(ctrl[pid.long()], u, v)
         n = cross(su, sv)
-        n = torch.where((n * d).sum(-1, keepdim=True) > 0.0, -n, n)
+        n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
         return normalize(n)
 
     cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))

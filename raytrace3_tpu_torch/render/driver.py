@@ -52,14 +52,9 @@ def make_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
     ``rng`` is a ``torch.Generator`` on the scene's device (or a draws
     source).  The camera jitter (Raytracer.h:429-441: pos + 0.00015 x a
     random unit vector, then lookAt) is drawn first, then the photon walk's
-    uniforms.  Ported: either photon walk, the staged or the slot eye
-    wavefront at ``slots=1``; the K-slot wavefront and deposit compaction
-    wait for a later slice.
+    uniforms.  The config picks the photon walk, the staged or the K-slot
+    eye wavefront and the deposit compaction, as in the JAX package.
     """
-    if cfg.slots != 1 or cfg.deposit_compact_frac < 1.0:
-        raise NotImplementedError(
-            "the port runs slots=1 and deposit_compact_frac=1.0; the K-slot "
-            "eye wavefront and deposit compaction wait for a later slice")
     dev = scene.device
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     base_pos, base_look = f32(base_pos), f32(base_look)
@@ -81,10 +76,12 @@ def make_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
             n_rounds=cfg.rounds,
             photons_per_round=cfg.photons_per_round,
             max_depth=cfg.max_depth,
+            slots=cfg.slots,
             init_r2=cfg.init_r2,
             update_mode=cfg.update_mode,
             deposit_fn=deposit_fn,
             newton_fn=newton_fn,
+            deposit_compact_frac=cfg.deposit_compact_frac,
             debias_roulette=cfg.debias_roulette,
             photon_scene=photon_scene,
             photon_regen=cfg.photon_regen,

@@ -1,18 +1,20 @@
 """PASS 1 - eye trace: the staged-width wavefront emitting SPPM hit points.
 
-Port of ``raytrace3_tpu/render/eye.py`` at one slot per pixel: diffuse
-lobes store hit points and every lane carries exactly one specular
-continuation (a second one is dropped and counted).  Two schedules:
+Port of ``raytrace3_tpu/render/eye.py``: diffuse lobes store hit points,
+and specular lobes continue.  Two schedules:
 
-* the slot wavefront (``eye_pass`` with no schedule, JAX's ``K == 1``
-  branch): all R lanes walk every segment, and each segment's hit points
-  scatter into the buffer at once, so autograd reaches their weights;
-* the staged-width wavefront (``_eye_pass_compact``): at each scheduled
-  segment the surviving rays are gathered into a narrower buffer, and the
-  hit points scatter once at the end.
+* the slot wavefront (``eye_pass`` with no schedule): K = ``slots`` lanes a
+  pixel walk every segment.  A hit that needs both a reflected and a
+  refracted continuation takes a free slot of its pixel for the second
+  (a stable partition of the 2K candidates into K slots); at K = 1 every
+  lane keeps its one continuation.  Each segment's hit points scatter into
+  the buffer at once, so autograd reaches their weights;
+* the staged-width wavefront (``_eye_pass_compact``, one slot a pixel): at
+  each scheduled segment the surviving rays are gathered into a narrower
+  buffer, and the hit points scatter once at the end.
 
-Overflow (of a stage or of the buffer) is counted in ``dropped``.  The
-K-slot wavefront with K > 1 waits for a later slice.
+A continuation that finds no slot, a ray beyond a stage's width and a hit
+point beyond the buffer are dropped and counted in ``dropped``.
 """
 
 from __future__ import annotations
@@ -52,8 +54,10 @@ def _eye_material_lanes(scene: Scene):
 
 def eye_stage_widths(n_rays: int, schedule: tuple,
                      max_depth: int = MAX_DEPTH) -> list[tuple[int, int]]:
-    """(segments, lane width) per stage of a compact schedule: widths round
-    up to 128 lanes and never exceed the incoming width."""
+    """(segments, lane width) per stage of a compact schedule: each width
+    is ``int(n_rays * frac)`` rounded DOWN to a multiple of 128 lanes (at
+    least 128; JAX's expression, whose docstring says up), and never
+    exceeds the incoming width."""
     segs_total = max_depth + 1
     bounds = [0] + [seg for seg, _ in schedule] + [segs_total]
     widths = [n_rays]
@@ -70,30 +74,37 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
              compact_schedule: tuple = ()):
     """Trace camera rays; return (HitPoints, {"count", "dropped"}).
 
+    ``slots``: K ray slots a pixel (K = 1 suffices for scenes whose
+    materials have at most one specular lobe, every reference scene).
     ``compact_schedule``: ((segment, frac), ...): at the start of each
     listed segment (>= 1) the surviving rays are gathered into a buffer of
-    ``frac * R`` lanes (rounded up to 128).  Empty: the slot wavefront.
-    Only ``slots=1`` is ported.
+    about ``frac * R`` lanes (:func:`eye_stage_widths`); it needs ``slots=1``.  Empty:
+    the slot wavefront.
     """
-    if slots != 1:
-        raise NotImplementedError(
-            "the port's eye pass has one slot per pixel; the K-slot "
-            "wavefront (slots > 1) waits for a later slice")
     if compact_schedule:
+        if slots != 1:
+            raise ValueError("compact_schedule requires slots=1")
         return _eye_pass_compact(scene, org, dir, capacity, max_depth,
                                  init_r2, newton_fn, pixel_offset,
                                  compact_schedule)
     return _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
-                           newton_fn, pixel_offset)
+                           newton_fn, pixel_offset, slots)
 
 
-def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None):
-    """One segment of the compact eye wavefront.
+def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1):
+    """One segment of either eye wavefront.
 
-    ``lanes`` = (org, dir, wgt, pixel, active), the JAX pass's scan carry;
-    ``fetch_mat`` from :func:`_eye_material_lanes`.  Returns (next lanes,
-    secondaries dropped, hit-point candidate rows (w, 11): pos3 | n3 |
+    ``lanes`` = (org, dir, wgt, pixel, active), the lanes of the JAX pass's
+    scan carry, pixel-major with ``slots`` lanes a pixel; ``fetch_mat``
+    from :func:`_eye_material_lanes`.  Returns (next lanes, continuations
+    dropped, hit-point candidate rows (w, 11), one a lane: pos3 | n3 |
     wgt3 | pixel | valid, pixel in f32 being exact below 2^24).
+
+    At ``slots`` = 1 each lane keeps its primary continuation (the
+    reflection, else the refraction) and a second one is dropped.  At K >
+    1 a pixel's K primaries and K refractions that coexist with a
+    reflection are stably partitioned, valid first, into its K slots
+    (eye.py:186-212); the valid ones that find no slot are dropped.
     """
     o, d, wgt, px, act = lanes
     dtype = o.dtype
@@ -118,16 +129,40 @@ def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None):
     prim_v = refl_v | refr_v
     prim_d = torch.where(refl_v[:, None], d_refl, d_refr)
     prim_w = torch.where(refl_v[:, None], w_refl, w_refr)
-    n_dropped = (refl_v & refr_v).sum(dtype=torch.int32)
-    return (rec.pos, prim_d, prim_w, px, prim_v), n_dropped, rows
+    sec_v = refl_v & refr_v
+    if slots == 1:
+        return (rec.pos, prim_d, prim_w, px, prim_v), sec_v.sum(dtype=torch.int32), rows
+
+    R = o.shape[0] // slots
+    pair = lambda a, b: torch.cat([a.reshape(R, slots, *a.shape[1:]),
+                                   b.reshape(R, slots, *b.shape[1:])], 1)
+    cand_v = pair(prim_v, sec_v)                               # (R, 2K)
+    order = torch.argsort((~cand_v).to(torch.int8), dim=1, stable=True)[:, :slots]
+    take = lambda c: torch.take_along_dim(
+        c, order.reshape(R, slots, *(1,) * (c.dim() - 2)), 1).reshape(R * slots,
+                                                                      *c.shape[2:])
+    act = take(cand_v)
+    n_dropped = (cand_v.sum(dtype=torch.int32) - act.sum(dtype=torch.int32))
+    return ((take(pair(rec.pos, rec.pos)), take(pair(prim_d, d_refr)),
+             take(pair(prim_w, w_refr)), px, act), n_dropped, rows)
 
 
-def _primary_lanes(org, dir, pixel_offset):
+def _primary_lanes(org, dir, pixel_offset, slots: int = 1):
+    """Each pixel's camera ray in its first of ``slots`` lanes; the other
+    lanes idle (zero origin, direction and weight) until a split fills
+    them."""
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
-    return (org, dir, torch.ones((R, 3), dtype=dtype, device=dev),
-            torch.arange(R, dtype=torch.int32, device=dev) + pixel_offset,
-            torch.ones((R,), dtype=torch.bool, device=dev))
+    px = torch.arange(R, dtype=torch.int32, device=dev) + pixel_offset
+    if slots == 1:
+        return (org, dir, torch.ones((R, 3), dtype=dtype, device=dev), px,
+                torch.ones((R,), dtype=torch.bool, device=dev))
+    pad = lambda x: torch.cat([x[:, None], torch.zeros((R, slots - 1, 3), dtype=dtype,
+                                                       device=dev)], 1).reshape(R * slots, 3)
+    act = torch.zeros((R, slots), dtype=torch.bool, device=dev)
+    act[:, 0] = True
+    return (pad(org), pad(dir), pad(torch.ones((R, 3), dtype=dtype, device=dev)),
+            px.repeat_interleave(slots), act.reshape(R * slots))
 
 
 def _hitpoints(buf, capacity, init_r2):
@@ -138,19 +173,20 @@ def _hitpoints(buf, capacity, init_r2):
 
 
 def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
-                    newton_fn, pixel_offset):
-    """The slot wavefront at one slot: every segment's hit points go to the
-    next free buffer slots in lane order (Raytracer.h:312-319); once the
-    buffer is full the rest are dropped and counted.  The scatter is out of
-    place, so every version of the buffer stays in the autograd graph."""
+                    newton_fn, pixel_offset, slots: int = 1):
+    """The slot wavefront at ``slots`` lanes a pixel (eye.py:120-218):
+    every segment's hit points go to the next free buffer slots in lane
+    order (Raytracer.h:312-319); once the buffer is full the rest are
+    dropped and counted.  The scatter is out of place, so every version of
+    the buffer stays in the autograd graph."""
     dev = org.device
     fetch_mat = _eye_material_lanes(scene)
-    lanes = _primary_lanes(org, dir, pixel_offset)
+    lanes = _primary_lanes(org, dir, pixel_offset, slots)
     buf = torch.zeros((capacity + 1, 11), dtype=org.dtype, device=dev)
     count = torch.zeros((), dtype=torch.int32, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_depth + 1):
-        lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn)
+        lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn, slots)
         valid = rows[:, 10] > 0.5
         slot = count + torch.cumsum(valid.to(torch.int32), 0) - 1
         widx = torch.where(valid & (slot < capacity), slot, capacity).long()

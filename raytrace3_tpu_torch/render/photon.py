@@ -12,6 +12,9 @@ probability (Obj.h:30-45).  Two walks:
   refills dead lanes with fresh photons from the lights, round-robin
   (:func:`regen_segment` each).
 
+:func:`compact_deposits` gathers a round's valid deposits into a smaller
+buffer before the deposit op.
+
 Draw order per segment, which a replayed source must follow: (regen only:
 emission z and phi, N each), the roulette uniform (N), the two
 cosine-hemisphere uniforms (N each).
@@ -28,6 +31,7 @@ from ..core.sampling import (TWO_PI, as_draws, cosine_hemisphere, roulette,
 from ..core.types import Deposits, eta_from_refrn
 from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
+from ..ops.compact import compact_indices
 from ..ops.onehot import onehot_f32, take_rows
 from .eye import MAX_DEPTH
 
@@ -200,3 +204,17 @@ def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
     depth = depth + 1
     alive = rec.hit & (depth < segs)
     return (rec.pos, new_d, new_f, alive, depth, rr_off, emitted), record
+
+
+def compact_deposits(dep: Deposits, capacity: int) -> Deposits:
+    """The valid deposits of ``dep`` in their order, gathered into a buffer
+    of ``capacity`` records (invalid fill); valid ones beyond it are left
+    out, and the caller counts them.  ``dep`` itself when it fits."""
+    D = dep.valid.shape[0]
+    if capacity >= D:
+        return dep
+    idx = compact_indices(dep.valid, capacity, fill=D)
+    ok = idx < D
+    safe = torch.clamp_max(idx, D - 1)
+    return Deposits(pos=dep.pos[safe], n=dep.n[safe], flux=dep.flux[safe],
+                    valid=dep.valid[safe] & ok)

@@ -5,8 +5,9 @@ render}`` + ``HitPoint::update``, Raytracer.h:69-79, 210-295, 366-387): the
 static-lane or the regen photon walk, with every round in the deposit
 backend's layout space when it offers ``packed_call`` and is not
 differentiable (the tile deposit), else in hit-point order, where autograd
-reaches the deposit's custom backward.  Deposit compaction waits for a
-later slice.
+reaches the deposit's custom backward.  With ``deposit_compact_frac`` < 1
+each round's valid deposits are compacted before the deposit op, and those
+the buffer cannot hold are counted in ``deposits_dropped``.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ from functools import partial
 import torch
 
 from ..core.sampling import as_draws
-from ..core.types import HitPoints
+from ..core.types import Deposits, HitPoints
 from ..geometry.scene import Scene
 from .deposit import deposit_bruteforce
 from .eye import INIT_R2, MAX_DEPTH, eye_pass
 from .light import emit_photons
-from .photon import photon_trace, photon_trace_regen, regen_state_init
+from .photon import (compact_deposits, photon_trace, photon_trace_regen,
+                     regen_state_init)
 
 #: Reference radius-shrink factor (Raytracer.h:45).
 ALPHA = 0.7
@@ -53,22 +55,36 @@ def ppm_update(hp: HitPoints, d_nphot, d_tao, mode: str = "sppm",
     return hp.replace(r2=r2, tao=tao, nphot=nphot)
 
 
+def compact_round(dep: Deposits, frac: float):
+    """(deposits, dropped): a round's deposits compacted to ``max(int(D x
+    frac), 128)`` records and the count of valid ones left out (lost flux);
+    ``frac`` >= 1 leaves the round as it is."""
+    dropped = torch.zeros((), dtype=torch.int32, device=dep.valid.device)
+    if frac < 1.0:
+        cap = max(int(dep.valid.shape[0] * frac), 128)
+        nv = dep.valid.sum(dtype=torch.int32)
+        dropped = torch.clamp_min(nv - cap, 0)
+        dep = compact_deposits(dep, cap)
+    return dep, dropped
+
+
 def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
                   photons_per_round: int, max_depth: int = MAX_DEPTH,
                   update_mode: str = "sppm", deposit_fn=deposit_bruteforce,
                   newton_fn=None, debias_roulette: bool = False,
-                  regen: bool = False):
+                  regen: bool = False, deposit_compact_frac: float = 1.0):
     """Photon-mapping rounds (Raytracer.h:210-295).
 
     ``photons_per_round`` photons per light walk ``max_depth + 1`` segments
     per round: a fresh batch each round (``regen=False``, drawing the
     emission and then each segment's uniforms), or persistent lanes that
     refill from the lights every segment (``regen=True``).  ``rng``: a
-    ``torch.Generator`` or a draws source.
+    ``torch.Generator`` or a draws source.  ``deposit_compact_frac`` < 1
+    compacts each round's deposits before the deposit (:func:`compact_round`).
 
     Returns (hp, emitted_per_light, deposits_dropped): normalise the image
     by ``emitted_per_light`` (rounds x photons without regen); a nonzero
-    drop count means a capped deposit backend lost flux.
+    drop count means the compaction or a capped deposit backend lost flux.
     """
     draws = as_draws(rng)
     # A differentiable backend keeps the hit-point-order path: packed_call
@@ -130,8 +146,9 @@ def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
                                           photons_per_round)
             dep = photon_trace(scene, draws, org, dir, flux, max_depth,
                                debias_roulette=debias_roulette, newton_fn=newton_fn)
+            dep, dropped = compact_round(dep, deposit_compact_frac)
             state, ovf = fold_state(state, dep)
-            drops = drops + ovf
+            drops = drops + dropped + ovf
         emitted = torch.tensor(float(n_rounds * photons_per_round), device=dev)
         return finish_state(state), emitted, drops
 
@@ -142,9 +159,10 @@ def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
             scene, draws, scene.light_pos, scene.light_color,
             photons_per_round, pstate, max_depth,
             debias_roulette=debias_roulette, newton_fn=newton_fn)
+        dep, dropped = compact_round(dep, deposit_compact_frac)
         state, ovf = fold_state(state, dep)
         emitted = emitted + e
-        drops = drops + ovf
+        drops = drops + dropped + ovf
     # Per-light counts agree to within one photon: their mean normalises.
     return finish_state(state), emitted.mean(), drops
 
@@ -165,13 +183,15 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
                 photons_per_round: int, max_depth: int = MAX_DEPTH,
                 slots: int = 1, init_r2: float = INIT_R2,
                 update_mode: str = "sppm", deposit_fn=deposit_bruteforce,
-                newton_fn=None, debias_roulette: bool = False,
+                newton_fn=None, deposit_compact_frac: float = 1.0,
+                debias_roulette: bool = False,
                 photon_scene: Scene | None = None, photon_regen: bool = False,
                 eye_compact_schedule: tuple = ()):
     """One SPPM pass: eye trace -> photon rounds -> pixel estimate
     (Raytracer.h:366-387).  ``photon_regen`` picks the persistent-lane
     walk, ``eye_compact_schedule`` the staged eye wavefront (empty: the
-    slot wavefront), as in the JAX package.  Returns (image (R, 3),
+    slot wavefront with ``slots`` slots a pixel), ``deposit_compact_frac``
+    the deposit compaction, as in the JAX package.  Returns (image (R, 3),
     stats)."""
     hp, stats = eye_pass(scene, cam_org, cam_dir, hitpoint_capacity,
                          max_depth, slots, init_r2, newton_fn=newton_fn,
@@ -179,7 +199,8 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
     hp, emitted, dep_drops = photon_rounds(
         photon_scene if photon_scene is not None else scene, rng, hp,
         n_rounds, photons_per_round, max_depth, update_mode, deposit_fn,
-        newton_fn, debias_roulette=debias_roulette, regen=photon_regen)
+        newton_fn, debias_roulette=debias_roulette, regen=photon_regen,
+        deposit_compact_frac=deposit_compact_frac)
     img = estimate_image(hp, cam_org.shape[0], emitted)
     stats = dict(stats)
     stats["photons_emitted"] = emitted

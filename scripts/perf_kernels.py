@@ -59,6 +59,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from raytrace3_tpu_torch.core.device import card_line  # noqa: E402
 from raytrace3_tpu_torch.ops import cuda_build  # noqa: E402
 from raytrace3_tpu_torch.ops import deposit_kernel as dk  # noqa: E402
 from raytrace3_tpu_torch.ops import lane_kernel as lk  # noqa: E402
@@ -473,7 +474,7 @@ def main() -> int:
     import raytrace3_tpu_torch  # noqa: F401  (TF32 off)
 
     device = torch.device("cuda", 0)
-    card = cs.card_line()
+    card = card_line()
     print(card, flush=True)
     parent = Parent(args.parent)
     current = {"newton": nk.KERNEL, "tile": dk.KERNEL, "block": dk.BLOCK_KERNEL,
@@ -521,7 +522,7 @@ def main() -> int:
     # The CLI's --deposit tile at a 1024^2 canvas (cli.py: make_backends).
     tile512 = dk.DepositTile(tile=512, chunk=2048, bucket2d=False, **preset_bounds(cfg, device))
     add(tile_case("ref1024_tile512", tile512, hp, deps, parent, args.reps))
-    result["card"] = cs.card_line()
+    result["card"] = card_line()
     args.out.write_text(json.dumps(result, indent=1))
     ok = all(c["ok"] if c["kernel"] == "newton" else c["new_vs_f64"]["ok"]
              for c in result["cases"])

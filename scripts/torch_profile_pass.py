@@ -32,7 +32,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import BENCH, card_line, make_pass  # noqa: E402
+from chip_smoke import BENCH, make_pass  # noqa: E402
+from raytrace3_tpu_torch.core.device import card_line  # noqa: E402
 
 
 def timed(fn, bucket: dict, name: str):

@@ -33,7 +33,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import RESTARTS, TRAIN, card_line  # noqa: E402
+from chip_smoke import RESTARTS, TRAIN  # noqa: E402
+from raytrace3_tpu_torch.core.device import card_line  # noqa: E402
 
 #: The port's kernels by the name the profiler gives their device code.
 PORT_KERNELS = ("newton_kernel", "deposit_lane_kernel", "deposit_lane_bwd_kernel",

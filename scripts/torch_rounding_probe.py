@@ -34,6 +34,8 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def op_table(device) -> None:
+    from raytrace3_tpu_torch.core.vecmath import dot
+
     gen = torch.Generator().manual_seed(0)
     n = 1 << 20
     u = lambda lo, hi: torch.rand(n, generator=gen) * (hi - lo) + lo
@@ -46,6 +48,7 @@ def op_table(device) -> None:
         "div": (torch.div, (u(-300, 300), u(1e-3, 1))),
         "mul": (torch.mul, (u(-300, 300), u(-1, 1))),
         "dot3 (a*b).sum(-1)": (lambda a, b: (a * b).sum(-1), (v3(), v3())),
+        "dot3 vecmath.dot": (dot, (v3(), v3())),
         "exp": (torch.exp, (u(-20, 0),)),
         "pow 1/2.2": (lambda x: torch.pow(x, 1 / 2.2), (u(0, 1),)),
         "floor": (torch.floor, (u(-100, 100),)),

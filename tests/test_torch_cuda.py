@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card,
+and the port's dot product on the card against the CPU's.
 
 Every test here needs an NVIDIA GPU and skips without one.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch is
@@ -833,3 +834,13 @@ def test_lane_plan_equals_run_parts_over_many_runs(cuda_device, per_block):
     want_run, want_end = lane_kernel.run_parts(lo, hi, per_block, W)
     assert torch.equal(plan[:n_parts], want_run) and torch.equal(plan[n_parts:], want_end)
     assert float(out.abs().sum()) == 0.0
+
+
+def test_dot_rounds_on_the_card_as_on_the_cpu(cuda_device):
+    """``vecmath.dot`` adds x + y + z from the left on both devices, so the
+    card's dot products equal the CPU's bit for bit (ROADMAP.md, F3)."""
+    from raytrace3_tpu_torch.core.vecmath import dot
+
+    g = torch.Generator().manual_seed(0)
+    a, b = (torch.randn((1 << 16, 3), generator=g) * 50 for _ in range(2))
+    assert torch.equal(dot(a.to(cuda_device), b.to(cuda_device)).cpu(), dot(a, b))

@@ -50,6 +50,22 @@ def test_package_and_smoke_script_import_no_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_bench_and_crossval_scripts_import_no_jax():
+    """``bench_torch.py`` and ``scripts/torch_crossval.py`` import the JAX
+    package's ``bench.py`` and ``scripts/crossval.py`` for the C++ side,
+    which import no JAX at their top."""
+    proc = _python(
+        "import runpy, sys\n"
+        "runpy.run_path('bench_torch.py', run_name='bench_torch')\n"
+        "runpy.run_path('scripts/torch_crossval.py', run_name='torch_crossval')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'raytrace3_tpu'))\n"
+        "assert {'bench', 'crossval'} <= set(sys.modules), 'bench, crossval not imported'\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_tf32_is_off_after_import():
     proc = _python(
         "import torch\n"

@@ -210,3 +210,25 @@ def test_open_pairs_is_the_twins_gate():
     assert gate.shape == (64, 32) and 0 < int(gate.sum()) < gate.numel()
     hit = solve_plain(_t(org), _t(d), _t(ctrl), restarts=8)[4]
     assert not bool((hit & ~gate.any(1)).any())
+
+
+def test_edge_ray_agrees_to_the_solves_acceptance():
+    """ROADMAP section 3, F2: pixel 51 of ``full`` at 16 x 16 meets patch 3
+    at u = 0.999, where the Newton iterate is only good to the acceptance
+    radius sqrt(M_EPS).  The port's root and JAX's share the hit, the patch
+    and t to 2e-5 relative; their v (and so the normal) differ, which
+    ``tests/test_torch_eye.py::test_k_slot_eye_pass_newton_at_16_matches_jax``
+    holds against NORMAL_ATOL while F2 is open."""
+    from raytrace3_tpu import scenes as jscenes
+    from raytrace3_tpu.render.camera import emit_rays as j_emit_rays
+
+    org, d = (np.asarray(x)[51:52] for x in j_emit_rays(jscenes.reference_camera(16, 16)))
+    ctrl = np.asarray(jscenes.full(atlas_res=8).bezier.ctrl)
+    want = [np.asarray(x) for x in make_newton_pallas(interpret=True)(
+        jnp.asarray(org), jnp.asarray(d), jnp.asarray(ctrl))]
+    got = [x.numpy() for x in make_newton(restarts=8)(_t(org), _t(d), _t(ctrl))]
+    print("jax t, u, v", [float(x[0]) for x in want[:3]],
+          "port", [float(x[0]) for x in got[:3]])
+    assert bool(want[4][0]) and bool(got[4][0]) and int(got[3][0]) == int(want[3][0]) == 3
+    assert abs(float(got[0][0]) - float(want[0][0])) <= 2e-5 * float(want[0][0])
+    assert float(want[1][0]) > 0.999

@@ -204,31 +204,38 @@ def jax_walk_steps():
 
 
 def _slot_lanes(state):
-    R = state["org"].shape[0]
-    return (np.asarray(state["org"]).reshape(R, 3), np.asarray(state["dir"]).reshape(R, 3),
-            np.asarray(state["wgt"]).reshape(R, 3), np.arange(R, dtype=np.int32),
-            np.asarray(state["active"]).reshape(R))
+    R, K = state["active"].shape
+    n = R * K
+    return (np.asarray(state["org"]).reshape(n, 3), np.asarray(state["dir"]).reshape(n, 3),
+            np.asarray(state["wgt"]).reshape(n, 3),
+            np.repeat(np.arange(R, dtype=np.int32), K),
+            np.asarray(state["active"]).reshape(n))
 
 
 def _slot_step(carry, out):
-    """One step of JAX's one-slot eye wavefront (eye.py:138-213) in the
-    port's ``eye_segment`` convention.  JAX scatters the segment's hit
-    points straight into the buffer, so the candidate rows are read back
-    from the slots it filled (slot -> lane by the stored pixel, pixel i =
-    lane i); rows that stored nothing get the hit position (the next
-    origin) and an unknown (NaN) normal.  Needs a buffer that did not
-    fill up."""
+    """One step of JAX's slot eye wavefront (eye.py:138-213) in the port's
+    ``eye_segment`` convention, lanes pixel-major with K slots a pixel.
+    JAX scatters the segment's hit points straight into the buffer, so the
+    candidate rows are read back from the slots it filled (slot -> lane by
+    the stored pixel, pixel i = lanes iK..iK+K-1, of which one may be
+    active); rows that stored nothing get the hit position (the next
+    origin of the same lane, as no split moves a continuation to another
+    slot) and an unknown (NaN) normal.  Needs a buffer that did not fill
+    up and a scene whose materials have at most one specular lobe."""
     (state, (hp, count, dropped)), ((state2, (hp2, count2, dropped2)), _) = carry, out
     lanes, lanes2 = _slot_lanes(state), _slot_lanes(state2)
     c0, c1 = int(count), int(count2)
     assert c1 < np.asarray(hp2.pos).shape[0], "the hit-point buffer filled up"
-    R = lanes[0].shape[0]
-    rows = np.zeros((R, 11), np.float32)
+    R, K = state["active"].shape
+    act = lanes[4].reshape(R, K)
+    assert (act.sum(1) <= 1).all(), "a pixel holds two active lanes: a split"
+    rows = np.zeros((R * K, 11), np.float32)
     rows[:, 0:3] = lanes2[0]
     rows[:, 3:6] = np.nan
-    rows[:, 9] = np.arange(R)
+    rows[:, 9] = lanes[3]
     slots = np.arange(c0, c1)
-    lane = np.asarray(hp2.pixel)[slots]
+    pixel = np.asarray(hp2.pixel)[slots]
+    lane = pixel * K + np.argmax(act[pixel], 1)
     rows[lane, 0:3] = np.asarray(hp2.pos)[slots]
     rows[lane, 3:6] = np.asarray(hp2.n)[slots]
     rows[lane, 6:9] = np.asarray(hp2.wgt)[slots]
