@@ -6,8 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's six CUDA kernels from ``raytrace3_tpu_torch/csrc/``
-and drives the port's four paths: the render pass, the train step, the CLI
-and the stream deposit's pass.  The render path is the port bench's
+and drives the port's paths: the render pass, the train step, the CLI, the
+stream deposit's pass and the sharded render and train step (phases
+16-18, in spawned ranks; with more cards the ranks take one each).  The
+render path is the port bench's
 (``bench_torch.py``: ``bench.py``'s configuration, scene ``full``, 512 x
 512, 16 rounds x 131072 photons, depth 13, regen walk, Bezier compaction
 0.09 / 0.05, the staged eye schedule, the tile deposit at tile 256 with
@@ -80,7 +82,28 @@ with a non-zero exit when it fails:
  15. the Epanechnikov deposit on the card against the CPU at the
      finite-difference test's size (forward, and gradients w.r.t. deposit
      positions, hit positions and r2), and the peak memory of one train
-     step at 64^2 through ``deposit_bruteforce_epa``.
+     step at 64^2 through ``deposit_bruteforce_epa``;
+ 16. the sharded render (``parallel.shard.render_sharded``) at the
+     ``sharded10m`` preset's width with the kernels (``--pallas --deposit
+     tile --regen``), one rank a card over NCCL in spawned processes that
+     load phase 1's kernels; on one card the 1 x 1 sharded pass equals
+     ``make_pass_fn``'s with the same generator bit for bit.  Each rank
+     holds the kernels to their twins on the inputs the run gave them
+     (``held_inputs``, ``hold_kernels``): the tile deposit's first call
+     (the gathered hit points against the rank's round) and a Newton call
+     on a photon segment of round 1, bit for bit;
+ 17. two ranks on the one card over gloo, every collective staged through
+     host memory (printed): the 1 x 2 photon-axis pass and the
+     ``--hp-sharded`` ring at that width, then a 2-rank sharded train step
+     at train256's; images, gradients and params equal across ranks (with
+     two cards the same again over NCCL).  Each rank holds its kernels as
+     phase 16 does: on the ring the tile deposit's second call (a hop: the
+     neighbour's deposits against the rank's shard of the layout), and in
+     the train step the lane deposit and its transpose on the first round's
+     inputs (the gathered hit points, the rank's deposits, the cotangent
+     the loss gave);
+ 18. the port's dry run (``parallel/dryrun.py``) on 4 ranks, a 2 x 2 mesh,
+     as phase 17 runs its ranks.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -92,6 +115,7 @@ non-zero before printing either.  It imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -191,6 +215,19 @@ EPA_TRAIN = dict(TRAIN, width=64, height=64)
 #: Phase 12: the round-3 deposit sweep's stream configuration
 #: (scripts/perf_deposit_sweep.py:110-122, ``str1d_t128_ch1024``).
 STREAM = dict(tile=128, chunk=1024, work_cap=65536, bucket2d=False)
+#: Phases 16-17: the sharded path at its full width, the ``sharded10m``
+#: preset (scene ``full``, 512^2, 8 x 131072 photons, depth 13, hit-point
+#: factor 2.0) with the kernels as ``rt3-torch --preset sharded10m --pallas
+#: --deposit tile --regen`` builds them (the tile deposit #2 at tile 256,
+#: Newton #1 at 8 restarts); its 100 passes cut to SHARDED_PASSES (NCCL) and
+#: GLOO_PASSES (two ranks on one card over gloo), and phase 17's sharded
+#: train step at train256's width to GLOO_TRAIN_STEPS steps.
+SHARDED_FLAGS = ["--preset", "sharded10m", "--pallas", "--deposit", "tile", "--regen"]
+SHARDED_PASSES = 3
+GLOO_PASSES = 2
+GLOO_TRAIN_STEPS = 2
+#: Seconds a spawned phase may run before its ranks are terminated.
+SPAWN_TIMEOUT = 600
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -1212,6 +1249,359 @@ def phase_epa(card: str, device) -> None:
         raise SystemExit("phase 15 failed: the Epanechnikov train step is wrong")
 
 
+def built_libraries() -> dict:
+    """The kernels' libraries in the build directory, with their times."""
+    from raytrace3_tpu_torch.ops import cuda_build
+
+    return {p.name: p.stat().st_mtime_ns for p in cuda_build.BUILD_DIR.glob("*.so")}
+
+
+#: The deposit wrappers whose inputs ``held_inputs`` can record, by module.
+DEPOSIT_WRAPPERS = {"deposit_tile": "raytrace3_tpu_torch.ops.deposit_kernel",
+                    "deposit_lane": "raytrace3_tpu_torch.ops.lane_kernel",
+                    "deposit_lane_bwd": "raytrace3_tpu_torch.ops.lane_kernel"}
+#: The Newton call ``held_inputs`` records: this many calls after the run's
+#: first deposit, a photon segment of round 1 (phase 2 takes segment 3).
+NEWTON_HELD_CALL = 3
+
+
+@contextlib.contextmanager
+def held_inputs(picks: dict, newton_fn=None):
+    """Inside, clones of the inputs of chosen kernel calls of the path:
+    call number ``picks[name]`` (from 0) of each deposit wrapper named, and
+    with ``newton_fn`` the NEWTON_HELD_CALL-th call of the solver yielded
+    beside them after the first deposit.  Yields (inputs by kernel name,
+    that solver or None).  Recording calls the wrappers unchanged, so each
+    still counts its own launches."""
+    import importlib
+
+    held, calls = {}, dict.fromkeys([*picks, "newton"], 0)
+    clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+
+    def tap(name, fn):
+        def call(*args):
+            if calls[name] == picks[name]:
+                held[name] = tuple(clone(a) for a in args)
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    def solver(org, dir, ctrl):
+        if any(calls[k] for k in picks):
+            if calls["newton"] == NEWTON_HELD_CALL:
+                held["newton"] = (org.clone(), dir.clone(), ctrl.clone())
+            calls["newton"] += 1
+        return newton_fn(org, dir, ctrl)
+
+    modules = {name: importlib.import_module(DEPOSIT_WRAPPERS[name]) for name in picks}
+    originals = {name: getattr(m, name) for name, m in modules.items()}
+    for name, m in modules.items():
+        setattr(m, name, tap(name, originals[name]))
+    try:
+        yield held, solver if newton_fn is not None else None
+    finally:
+        for name, m in modules.items():
+            setattr(m, name, originals[name])
+
+
+def hold_kernels(held: dict, newton_fn=None) -> list[dict]:
+    """Each recorded kernel call of ``held_inputs`` against its plain twin
+    on the same inputs: the deposits' counts exactly and their flux to
+    DEPOSIT_FLUX_RTOL of the twin summed in float64 (the transpose's d_flux
+    to DEPOSIT_FLUX_RTOL of the twin's sum of its terms' magnitudes, since
+    the cotangent is signed, and to itself bit for bit over two calls);
+    Newton's hits, patch ids and t, u, v to NEWTON_ATOL (bit for bit)."""
+    from raytrace3_tpu_torch.ops.deposit_kernel import deposit_tile, deposit_tile_plain
+    from raytrace3_tpu_torch.ops.lane_kernel import (deposit_lane, deposit_lane_bwd,
+                                                     deposit_lane_bwd_plain, deposit_lane_plain)
+    from raytrace3_tpu_torch.ops.newton_kernel import solve_plain
+
+    f64 = dict(sum_dtype=torch.float64)
+    rows = []
+    for name, args in held.items():
+        if name == "newton":
+            got, want = newton_fn(*args), solve_plain(*args, **newton_fn.keywords)
+            both = got[4] & want[4]
+            err = max(float((g - w)[both].abs().max()) if bool(both.any()) else 0.0
+                      for g, w in zip(got[:3], want[:3]))
+            hit_mismatch = int((got[4] != want[4]).sum())
+            pid_mismatch = int((both & (got[3] != want[3])).sum())
+            rows.append(dict(kernel=name, shape=f"{args[0].shape[0]} rays x "
+                             f"{args[2].shape[0]} patches", hits=int(want[4].sum()),
+                             hit_mismatch=hit_mismatch, pid_mismatch=pid_mismatch, err=err,
+                             ok=not hit_mismatch and not pid_mismatch and err <= NEWTON_ATOL
+                             and int(want[4].sum()) > 0))
+        elif name == "deposit_lane_bwd":
+            *items, packed, u, dep_packed, tile, chunk = args
+            got, again = deposit_lane_bwd(*args), deposit_lane_bwd(*args)
+            want = deposit_lane_bwd_plain(*items, packed, u, dep_packed, tile, **f64)
+            scale = deposit_lane_bwd_plain(*items, packed, u.abs(), dep_packed, tile, **f64)
+            rel = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+            bitwise = bool(torch.equal(got, again))
+            rows.append(dict(kernel=name, shape=f"{packed.shape[0]} hit slots x "
+                             f"{dep_packed.shape[1]} deposit lanes, {items[2].shape[0]} items",
+                             rel=rel, bitwise=bitwise, ok=rel <= DEPOSIT_FLUX_RTOL and bitwise
+                             and float(scale.max()) > 0))
+        else:
+            kernel, plain = ((deposit_tile, deposit_tile_plain) if name == "deposit_tile"
+                             else (deposit_lane, deposit_lane_plain))
+            packed, dep_packed = args[-2], args[-1]
+            want = plain(*args, **f64)
+            cnt_mismatch, rel, _ = compare_deposit(kernel(*args), want)
+            rows.append(dict(kernel=name, shape=f"{packed.shape[0]} hit slots x "
+                             f"{dep_packed.shape[1]} deposit lanes",
+                             pairs=int(want[:, 0].sum()), cnt_mismatch=cnt_mismatch, rel=rel,
+                             ok=not cnt_mismatch and rel <= DEPOSIT_FLUX_RTOL
+                             and int(want[:, 0].sum()) > 0))
+    return rows
+
+
+def check_holds(phase: int, what: str, holds_by_rank, want: set, card: str) -> None:
+    """Print every rank's kernel holds; fail the phase on a miss, or when a
+    kernel of ``want`` was not held on every rank."""
+    for rank, holds in enumerate(holds_by_rank):
+        for h in holds:
+            facts = ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in h.items() if k not in ("kernel", "shape", "ok"))
+            print(f"[{phase}] {what} rank {rank}: {h['kernel']} on the path's own inputs "
+                  f"({h['shape']}) vs its plain twin: {facts}; holds {h['ok']} ({card})")
+        if {h["kernel"] for h in holds} != want or not all(h["ok"] for h in holds):
+            raise SystemExit(f"phase {phase} failed: a kernel of the {what} disagrees with its "
+                             "plain twin on the path's inputs, or was not held")
+
+
+def sharded_rank(passes: int, modes, equal_check: bool) -> dict:
+    """One rank of the sharded path: ``cli``'s config and backends of
+    SHARDED_FLAGS, then for each ``hp_sharded`` in ``modes`` a
+    ``render_sharded`` of ``passes`` passes, the launch counters zeroed just
+    before it and read just after.  With ``equal_check`` (a 1 x 1 mesh) it
+    first holds one sharded pass to ``make_pass_fn``'s with the same
+    generator."""
+    from raytrace3_tpu_torch import cli
+    from raytrace3_tpu_torch.parallel.mesh import make_mesh
+    from raytrace3_tpu_torch.parallel.shard import make_sharded_pass_fn, render_sharded
+    from raytrace3_tpu_torch.render.driver import (CAMERA_LOOK, CAMERA_POS, build_scene,
+                                                   make_pass_fn)
+
+    torch.set_num_threads(4)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        SHARDED_FLAGS + ["--passes", str(passes)]))
+    mesh = make_mesh()
+    scene = build_scene(cfg, mesh.device)
+    newton_fn, deposit_fn = cli.make_backends(cfg, scene)
+    out = {"rank": mesh.rank, "mesh": dict(mesh.shape), "staged": mesh.staged,
+           "device": str(mesh.device), "deposit": type(deposit_fn).__name__,
+           "tile": getattr(deposit_fn, "tile", None), "capacity": cfg.hitpoint_capacity}
+    if equal_check:
+        gen = lambda: torch.Generator(device=mesh.device).manual_seed(11)
+        fn = make_sharded_pass_fn(scene, cfg, CAMERA_POS, CAMERA_LOOK, mesh, deposit_fn,
+                                  newton_fn)
+        g = gen()
+        img, st = fn(g, g)
+        want, st_w = make_pass_fn(scene, cfg, CAMERA_POS, CAMERA_LOOK, deposit_fn,
+                                  newton_fn)(gen())
+        out["equal"] = bool(torch.equal(img, want))
+        out["counters"] = {k: (float(v), float(st_w[k])) for k, v in st.items()}
+    for hp_sharded in modes:
+        # The tile deposit's first call, or on the ring its second: the
+        # neighbour's batch against this rank's shard.
+        picks = {"deposit_tile": 1 if hp_sharded else 0}
+        with tempfile.TemporaryDirectory() as tmp, held_inputs(picks, newton_fn) as (held, solver):
+            jl = os.path.join(tmp, "m.jsonl")
+            zero_counters()
+            torch.cuda.synchronize()
+            img, metrics = render_sharded(cfg, mesh, scene, deposit_fn, solver,
+                                          hp_sharded=hp_sharded, metrics_jsonl=jl)
+            launches = read_counters()
+            per_pass = [json.loads(line)["pass_seconds"] for line in open(jl)]
+        out["ring" if hp_sharded else "gather"] = dict(
+            metrics=metrics, launches=launches, image=img, per_pass=per_pass,
+            finite=bool(np.isfinite(img).all()), mean=float(img.mean()),
+            peak_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9,
+            holds=hold_kernels(held, newton_fn))
+    return out
+
+
+def sharded_train_rank(steps: int) -> dict:
+    """One rank of a sharded train step at train256's width (phase 9's
+    config, its deposit the lane kernel sized by the rank's share): ``steps``
+    steps from half the albedos toward a black target, each rank's photons
+    from its own generator; the launch counters zeroed just before."""
+    from raytrace3_tpu_torch.diff.train import extract_params, make_train_step
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.parallel.mesh import make_mesh
+    from raytrace3_tpu_torch.parallel.shard import shard_generators
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    torch.set_num_threads(4)
+    cfg = RenderConfig(**TRAIN)
+    mesh = make_mesh()
+    scene = build_scene(cfg, mesh.device)
+    init_fn, step_fn = make_train_step(scene, cfg, newton_fn=make_newton(cfg.newton_iters,
+                                                                         RESTARTS), mesh=mesh)
+    params = extract_params(scene)
+    params["diff"] = params["diff"] * 0.5
+    opt = init_fn(params)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=mesh.device)
+    losses, stats = [], []
+    with held_inputs({"deposit_lane": 0, "deposit_lane_bwd": 0}) as (held, _):
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, opt, loss, st = step_fn(params, opt, shard_generators(i, 0, mesh)[1],
+                                            target)
+            losses.append(float(loss))
+            stats.append({k: int(v) for k, v in st.items()})
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, read_counters()
+    return {"rank": mesh.rank, "staged": mesh.staged, "losses": losses, "stats": stats,
+            "s_per_step": seconds / steps, "launches": launches, "holds": hold_kernels(held),
+            "grads": {k: v.grad.cpu().numpy() for k, v in params.items()},
+            "params": {k: v.detach().cpu().numpy() for k, v in params.items()}}
+
+
+def dryrun_rank() -> dict:
+    """One rank of ``parallel/dryrun.py``, with its launch counts."""
+    from raytrace3_tpu_torch.parallel.dryrun import dryrun
+
+    torch.set_num_threads(2)
+    zero_counters()
+    out = dryrun()
+    out["launches"] = read_counters()
+    return out
+
+
+def sum_launches(outs, key=None) -> dict:
+    """Each kernel's launches summed over the ranks' results."""
+    parts = [o[key]["launches"] if key else o["launches"] for o in outs]
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def check_sharded(phase: int, outs, key: str, card: str) -> dict:
+    """Print and check one ``render_sharded`` run of every rank: the same
+    image bit for bit, finite and lit, both summed drop counters 0, the
+    kernels #1 and #2 launched; returns the launches summed over ranks."""
+    runs = [o[key] for o in outs]
+    m = runs[0]["metrics"]
+    meter = m["meter"]
+    launches = sum_launches(outs, key)
+    same = all(np.array_equal(r["image"], runs[0]["image"]) for r in runs)
+    print(f"[{phase}] {key}: {outs[0]['mesh']} mesh, {meter['passes']} super-passes, "
+          f"{meter['total_seconds'] / meter['passes']:.3f} s/pass (rank 0's passes "
+          f"{[round(x, 3) for x in runs[0]['per_pass']]} s), "
+          f"{meter['photons_per_s']:.0f} photons/s, {meter['mrays_per_s']:.2f} Mrays/s; "
+          f"dropped {m['dropped']}, deposits_dropped {m['deposits_dropped']} (summed over "
+          f"every pass and rank); newton {launches['newton']}, deposit_tile "
+          f"{launches['deposit_tile']} launches; ranks' images bit-equal {same}; peak "
+          f"{max(r['peak_gb'] for r in runs):.2f} GB a rank ({card})")
+    check_holds(phase, f"{key} run", [r["holds"] for r in runs], {"deposit_tile", "newton"},
+                card)
+    ok = (same and all(r["finite"] and r["mean"] > 0 for r in runs)
+          and all(r["metrics"]["dropped"] == 0 and r["metrics"]["deposits_dropped"] == 0
+                  for r in runs)
+          and launches["newton"] > 0 and launches["deposit_tile"] > 0)
+    if not ok:
+        raise SystemExit(f"phase {phase} failed: the sharded render ({key}) is wrong")
+    return launches
+
+
+def phase_sharded(card: str) -> dict:
+    """Phase 16: the sharded render at the sharded10m width over NCCL, one
+    rank a card; on one card the 1 x 1 pass equals make_pass_fn's."""
+    from raytrace3_tpu_torch.parallel.launch import spawn
+
+    world = torch.cuda.device_count()
+    before = built_libraries()
+    t0 = time.perf_counter()
+    outs = spawn(sharded_rank, world, (SHARDED_PASSES, (False,), world == 1),
+                 backend="nccl", timeout=SPAWN_TIMEOUT)
+    print(f"[16] {world} rank(s) over NCCL in {time.perf_counter() - t0:.1f} s; deposit "
+          f"{outs[0]['deposit']} tile {outs[0]['tile']}, capacity {outs[0]['capacity']}; the "
+          f"ranks loaded phase 1's kernels: {built_libraries() == before}")
+    if built_libraries() != before:
+        raise SystemExit("phase 16 failed: a rank rebuilt the kernels")
+    if world == 1:
+        o = outs[0]
+        print(f"[16] 1 x 1 sharded pass vs make_pass_fn with the same generator: image bit "
+              f"for bit {o['equal']}; counters (sharded, make_pass_fn) {o['counters']}")
+        if not o["equal"] or any(a != b for a, b in o["counters"].values()):
+            raise SystemExit("phase 16 failed: the 1 x 1 sharded pass is not make_pass_fn's")
+    return check_sharded(16, outs, "gather", card)
+
+
+def check_train(phase: int, outs, card: str) -> dict:
+    launches = sum_launches(outs)
+    same = all(np.array_equal(o["grads"][k], outs[0]["grads"][k])
+               and np.array_equal(o["params"][k], outs[0]["params"][k])
+               for o in outs for k in outs[0]["grads"])
+    print(f"[{phase}] sharded train step, {len(outs)} ranks (staged {outs[0]['staged']}): "
+          f"losses {outs[0]['losses']}, stats {outs[0]['stats']}, "
+          f"{max(o['s_per_step'] for o in outs):.3f} s/step; gradients and params equal "
+          f"across ranks {same}; max |grad| "
+          f"{ {k: float(np.abs(g).max()) for k, g in outs[0]['grads'].items()} }; launches "
+          f"{launches} ({card})")
+    check_holds(phase, "train step", [o["holds"] for o in outs],
+                {"deposit_lane", "deposit_lane_bwd"}, card)
+    ok = (same and all(np.isfinite(o["losses"]).all() for o in outs)
+          and all(s == {"deposits_dropped": 0, "dropped": 0} for o in outs for s in o["stats"])
+          and all(np.isfinite(g).all() for g in outs[0]["grads"].values())
+          and float(np.abs(outs[0]["grads"]["diff"]).max()) > 0
+          and all(launches[k] > 0 for k in ("newton", "deposit_lane", "deposit_lane_bwd")))
+    if not ok:
+        raise SystemExit(f"phase {phase} failed: the sharded train step is wrong")
+    return launches
+
+
+def phase_sharded_gloo(card: str) -> dict:
+    """Phase 17: two ranks on the one card over gloo, every collective
+    staged through host memory: the 1 x 2 photon-axis pass and the
+    --hp-sharded ring at the sharded10m width, then a 2-rank train step at
+    train256's; with two cards or more the same over NCCL, one rank a card."""
+    from raytrace3_tpu_torch.parallel.launch import spawn
+
+    launches = {}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    for backend in backends:
+        t0 = time.perf_counter()
+        outs = spawn(sharded_rank, 2, (GLOO_PASSES, (False, True), False), backend=backend,
+                     timeout=SPAWN_TIMEOUT)
+        print(f"[17] 2 ranks over {backend} (host-staged collectives: {outs[0]['staged']}) "
+              f"on {[o['device'] for o in outs]}, {time.perf_counter() - t0:.1f} s")
+        if backend == "gloo" and not outs[0]["staged"]:
+            raise SystemExit("phase 17 failed: gloo with CUDA tensors was not host-staged")
+        for key in ("gather", "ring"):
+            got = check_sharded(17, outs, key, card)
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        train = spawn(sharded_train_rank, 2, (GLOO_TRAIN_STEPS,), backend=backend,
+                      timeout=SPAWN_TIMEOUT)
+        got = check_train(17, train, card)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    return launches
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 18: ``parallel/dryrun.py`` on 4 ranks (a 2 x 2 mesh), on the
+    card as phase 17 runs its ranks (gloo, host-staged; NCCL with 4 cards)."""
+    from raytrace3_tpu_torch.parallel.launch import spawn
+
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    t0 = time.perf_counter()
+    outs = spawn(dryrun_rank, 4, backend=backend, timeout=SPAWN_TIMEOUT)
+    launches = sum_launches(outs)
+    o = outs[0]
+    print(f"[18] dryrun over {backend}: mesh {o['mesh']}, forward {o['forward']}, train "
+          f"{o['train']}, loss {o['loss']:.6g}, max |grad| {o['grad_max']}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s ({card})")
+    ok = (all(x["loss"] == o["loss"] and x["grad_max"] == o["grad_max"] for x in outs)
+          and all(launches[k] > 0 for k in ("newton", "deposit_tile", "deposit_lane",
+                                            "deposit_lane_bwd")))
+    if not ok:
+        raise SystemExit("phase 18 failed: the dry run's ranks disagree or skipped a kernel")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -1242,10 +1632,16 @@ def main() -> int:
     phase_kslot(card, device)
     phase_compaction(card, device, deps)
     phase_epa(card, device)
+    sharded = phase_sharded(card)
+    sharded_gloo = phase_sharded_gloo(card)
+    dryrun = phase_dryrun(card)
     # Each kernel's launches on each path, each path counted from 0: the
     # render pass (phase 5), the train step (phase 9), the CLI at
-    # reference1024 (phase 11) and the stream deposit's pass (phase 12).
-    paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches}
+    # reference1024 (phase 11), the stream deposit's pass (phase 12), the
+    # sharded render (phase 16), the two-rank runs on one card (phase 17) and
+    # the dry run (phase 18), summed over their ranks.
+    paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches,
+             "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun}
     rows = (newton, deposit, lane, lane_bwd, block, stream)
     for row in rows:
         name = row["name"]

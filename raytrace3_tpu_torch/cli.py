@@ -8,8 +8,18 @@ per-pass metrics and a profiler trace.  It runs on the card unless
 picks the Newton kernel (``ops/newton_kernel``, 8 restarts) and
 ``--deposit pallas`` the block deposit (kernel #5); without ``--pallas`` the
 Bezier solve is ``geometry.bezier.solve_winner``, as in the JAX package.
-The sharded renderer (``--sharded``, ``--hp-sharded``) is not ported: those
-flags exit non-zero.
+
+``--sharded`` renders with ``parallel.shard.render_sharded`` over every rank
+of the process group torchrun starts (all on the photon axis), or alone as
+a 1 x 1 mesh; ``--hp-sharded`` (with ``--sharded``) keeps each rank's hit
+points local and rotates the deposits (``parallel/ring.py``).  One rank a
+card over NCCL (``--platform cpu``: gloo)::
+
+    torchrun --nproc-per-node 2 -m raytrace3_tpu_torch.cli --preset sharded10m \
+        --pallas --deposit tile --regen --sharded --passes 4
+
+Only rank 0 writes the PNG and the metrics and prints.  The sharded render
+takes no checkpoint (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deposit", choices=["bruteforce", "grid", "pallas", "lane", "tile"],
                    default=None)
     p.add_argument("--hp-sharded", action="store_true",
-                   help="not ported (ROADMAP Slice D): exits non-zero")
+                   help="with --sharded: shard the hit points over the ranks and rotate "
+                        "the deposits around them")
     p.add_argument("--pallas", action="store_true",
                    help="use the Newton kernel (the JAX package's Pallas flag)")
     p.add_argument("--regen", action="store_true",
@@ -58,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--platform", default=None,
                    help="the device: cpu, or the GPU (cuda, the default)")
     p.add_argument("--sharded", action="store_true",
-                   help="not ported (ROADMAP Slice D): exits non-zero")
+                   help="render over every rank of the torchrun process group "
+                        "(pass x photon mesh, all on the photon axis)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -124,23 +136,42 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.sharded or args.hp_sharded:
-        print("rt3-torch: --sharded and --hp-sharded are not ported yet "
-              "(ROADMAP Slice D, the parallel axes)", file=sys.stderr)
+    if args.hp_sharded and not args.sharded:
+        print("rt3-torch: --hp-sharded needs --sharded", file=sys.stderr)
+        return 2
+    if args.sharded and args.checkpoint:
+        print("rt3-torch: the sharded render takes no --checkpoint", file=sys.stderr)
         return 2
 
     from .core.device import DEFAULT_DEVICE, resolve_device
     from .render import driver
     from .utils.image import save_png
 
-    device = resolve_device(args.platform or DEFAULT_DEVICE)
     cfg = config_from_args(args)
-    scene = driver.build_scene(cfg, device)
-    newton_fn, deposit_fn = make_backends(cfg, scene)
-    img, metrics = driver.render(
-        cfg, scene=scene, checkpoint_path=args.checkpoint,
-        preview_every=args.preview_every, metrics_jsonl=args.metrics_jsonl,
-        newton_fn=newton_fn, deposit_fn=deposit_fn, profile_dir=args.profile_dir)
+    if args.sharded:
+        from .parallel.mesh import make_mesh, multihost_init, rank_device
+        from .parallel.shard import render_sharded
+
+        device = rank_device(args.platform)
+        multihost_init(device=device)
+        mesh = make_mesh(device=device)
+        scene = driver.build_scene(cfg, device)
+        newton_fn, deposit_fn = make_backends(cfg, scene)
+        img, metrics = render_sharded(
+            cfg, mesh, scene, deposit_fn, newton_fn, hp_sharded=args.hp_sharded,
+            metrics_jsonl=args.metrics_jsonl if mesh.rank == 0 else None)
+        if mesh.rank != 0:
+            return 0
+        print(f"sharded over {mesh.n_pass} x {mesh.n_photon} ranks: dropped "
+              f"{metrics['dropped']}, deposits_dropped {metrics['deposits_dropped']}")
+    else:
+        device = resolve_device(args.platform or DEFAULT_DEVICE)
+        scene = driver.build_scene(cfg, device)
+        newton_fn, deposit_fn = make_backends(cfg, scene)
+        img, metrics = driver.render(
+            cfg, scene=scene, checkpoint_path=args.checkpoint,
+            preview_every=args.preview_every, metrics_jsonl=args.metrics_jsonl,
+            newton_fn=newton_fn, deposit_fn=deposit_fn, profile_dir=args.profile_dir)
     save_png(cfg.out, img)
     m = metrics.get("meter", {})
     print(f"wrote {cfg.out}  passes={m.get('passes')}  "

@@ -4,7 +4,8 @@ Port of ``raytrace3_tpu/diff/train.py``: gradients of an image loss with
 respect to the material albedos, the texture atlas and the Bezier control
 points, through the whole SPPM pass (the deposit's custom backward, the
 Newton solve's implicit-function-theorem backward, the texture and
-material lookups).  The sharded loss waits for the parallel slice.
+material lookups), on one rank or with eye rays and photons sharded over
+the photon axis of a ``parallel.mesh.Mesh`` (``make_train_step(mesh=)``).
 
 Learnable parameters, a dict of leaf tensors pulled from / injected into a
 ``Scene``:
@@ -58,10 +59,14 @@ def default_deposit_vjp(scene: Scene, cfg: RenderConfig, camera_pose=None,
     affordable, so the banded lane deposit with its transposed-kernel
     backward (``DepositLane(differentiable=True)``) is the default; on the
     CPU and on small canvases the bruteforce VJP stays (simpler, exactly as
-    accurate).  ``capacity``: the hit-point count that sizes the deposit's
-    work cap (its work grows with it); defaults to
-    ``cfg.hitpoint_capacity``.  ``device``: where the pass runs; defaults
-    to the scene's.
+    accurate).  ``capacity`` sizes the deposit's work cap, which bounds the
+    deposit WORK of one call, not the hit-point buffer it receives: pass
+    the per-rank share C / n_photon when photons are sharded (the sharded
+    loss hands the backend all C gathered hit points, but each rank
+    deposits only its photon shard); defaults to ``cfg.hitpoint_capacity``.
+    An undersized cap is loud: its overflow is counted in
+    ``deposits_dropped``.  ``device``: where the pass runs; defaults to the
+    scene's.
     """
     if capacity is None:
         capacity = cfg.hitpoint_capacity
@@ -157,7 +162,7 @@ def load_optimizer_tree(opt: torch.optim.Optimizer, params: dict, tree: dict) ->
 
 
 def make_train_step(scene: Scene, cfg: RenderConfig, optimizer=None,
-                    camera_pose=None, newton_fn=None, deposit_fn=None):
+                    camera_pose=None, newton_fn=None, deposit_fn=None, mesh=None):
     """(init_fn, step_fn) for inverse rendering.
 
     ``init_fn(params)`` makes the dict's tensors leaves that require grad
@@ -172,21 +177,99 @@ def make_train_step(scene: Scene, cfg: RenderConfig, optimizer=None,
     pass's.  The train state saves and restores with
     ``utils.checkpoint.save_tree`` / ``load_tree`` of ``{"params": params,
     "opt": optimizer_tree(opt_state, params)}`` (:func:`load_optimizer_tree`).
+
+    With ``mesh`` every rank runs ``step_fn`` with its own ``rng`` (JAX's
+    ``fold_in(fold_in(key, pass index), photon index)``) and the same
+    params, optimizer state and target: the loss of :func:`_make_sharded_loss`,
+    the rank gradients averaged over all ranks (JAX's number, see there)
+    and one identical optimizer step on each; the loss returned is the mean
+    over the pass axis and both counters are summed over the mesh.
     """
     if optimizer is None:
         optimizer = adam(1e-2)
-    run = _make_pass(scene, cfg, camera_pose, newton_fn, deposit_fn)
+    if mesh is None:
+        run = _make_pass(scene, cfg, camera_pose, newton_fn, deposit_fn)
+
+        def loss_fn(params, rng, target):
+            img, stats = run(params, rng)
+            return ((img - target.reshape(-1, 3)) ** 2).mean(), stats
+    else:
+        loss_fn = _make_sharded_loss(scene, cfg, mesh, camera_pose, newton_fn, deposit_fn)
 
     def init_fn(params):
         return optimizer([v.requires_grad_(True) for v in params.values()])
 
     def step_fn(params, opt_state, rng, target):
         opt_state.zero_grad(set_to_none=True)
-        img, stats = run(params, rng)
-        loss = ((img - target.reshape(-1, 3)) ** 2).mean()
+        loss, stats = loss_fn(params, rng, target)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            from ..parallel.mesh import AXES, PASS_AXIS
+
+            world = mesh.n_pass * mesh.n_photon
+            for v in params.values():
+                g = v.grad if v.grad is not None else torch.zeros_like(v)
+                v.grad = mesh.all_reduce(g, AXES) / world
+            loss = mesh.all_reduce(loss, PASS_AXIS) / mesh.size(PASS_AXIS)
         opt_state.step()
-        return params, opt_state, loss.detach(), {
+        return params, opt_state, loss, {
             "deposits_dropped": stats["deposits_dropped"], "dropped": stats["dropped"]}
 
     return init_fn, step_fn
+
+
+def _make_sharded_loss(scene: Scene, cfg: RenderConfig, mesh, camera_pose, newton_fn,
+                       deposit_fn):
+    """``loss_fn(params, rng, target) -> (loss, stats)`` of this rank with eye
+    rays and photons sharded over the mesh's photon axis (JAX's
+    ``_make_sharded_loss``): the rank's slice of the camera rays, all hit
+    points gathered, its ``cfg.photons_per_round / n_photon`` photons a
+    round from ``rng`` and each round's deposits summed over the axis, all
+    inside the autograd graph; the loss is the rank's own MSE against
+    ``target`` (the same on the ranks of a pass group).
+
+    JAX's gradient of its sharded loss (under ``shard_map(check_vma=
+    False)``) is the gradient of the pass-mean loss itself: against the
+    single-device emulation of the same shards it reads 1.00 times the
+    emulation's own gradient, not ``n_photon`` times
+    (tests/test_torch_multihost.py).  Here the collectives' backwards sum
+    the cotangents of the photon axis's identical loss copies (the
+    transposes ``psum`` -> ``psum``, ``all_gather`` -> ``psum_scatter``:
+    ``Mesh.all_reduce_grad``, ``all_gather_grad``), so the rank gradients
+    sum to ``n_photon`` times each pass group's; ``make_train_step``
+    divides their sum over all ranks by the number of ranks, which gives
+    JAX's number.  ``stats``: both drop counters summed over the mesh.
+    """
+    from ..parallel.mesh import AXES, PHOTON_AXIS
+    from ..parallel.shard import gather_hitpoints
+    from ..render.eye import eye_pass
+    from ..render.sppm import estimate_image, photon_rounds
+
+    org, dir = _camera_rays(scene, cfg, camera_pose)
+    n_photon = mesh.size(PHOTON_AXIS)
+    R = cfg.n_pixels
+    if R % n_photon or cfg.photons_per_round % n_photon:
+        raise ValueError(f"pixels {R} and photons_per_round {cfg.photons_per_round} must "
+                         f"divide over the photon axis {n_photon}")
+    ray_shard = R // n_photon
+    local_capacity = cfg.hitpoint_capacity // n_photon
+    local_photons = cfg.photons_per_round // n_photon
+    lo = mesh.photon_index * ray_shard
+    dep_fn = deposit_fn or default_deposit_vjp(scene, cfg, camera_pose, capacity=local_capacity)
+    psum = lambda x: mesh.all_reduce_grad(x, PHOTON_AXIS)
+
+    def loss_fn(params, rng, target):
+        s = inject_params(scene, params)
+        hp_local, eye_stats = eye_pass(s, org[lo:lo + ray_shard], dir[lo:lo + ray_shard],
+                                       local_capacity, cfg.max_depth, cfg.slots, cfg.init_r2,
+                                       newton_fn=newton_fn, pixel_offset=lo)
+        hp = gather_hitpoints(mesh, hp_local, grad=True)
+        hp, _, drops = photon_rounds(s, rng, hp, cfg.rounds, local_photons, cfg.max_depth,
+                                     cfg.update_mode, dep_fn, newton_fn, psum=psum)
+        img = estimate_image(hp, R, cfg.rounds * cfg.photons_per_round)
+        loss = ((img - target.reshape(-1, 3)) ** 2).mean()
+        return loss, {"deposits_dropped": mesh.all_reduce(drops, AXES),
+                      "dropped": mesh.all_reduce(eye_stats["dropped"], AXES)}
+
+    return loss_fn

@@ -13,8 +13,6 @@ the buffer cannot hold are counted in ``deposits_dropped``.
 from __future__ import annotations
 
 import math
-from functools import partial
-
 import torch
 
 from ..core.sampling import as_draws
@@ -68,75 +66,76 @@ def compact_round(dep: Deposits, frac: float):
     return dep, dropped
 
 
-def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
-                  photons_per_round: int, max_depth: int = MAX_DEPTH,
-                  update_mode: str = "sppm", deposit_fn=deposit_bruteforce,
-                  newton_fn=None, debias_roulette: bool = False,
-                  regen: bool = False, deposit_compact_frac: float = 1.0):
-    """Photon-mapping rounds (Raytracer.h:210-295).
+class RoundState:
+    """The hit-point state photon rounds update, and how a round's deposits
+    reach it.
 
-    ``photons_per_round`` photons per light walk ``max_depth + 1`` segments
-    per round: a fresh batch each round (``regen=False``, drawing the
-    emission and then each segment's uniforms), or persistent lanes that
-    refill from the lights every segment (``regen=True``).  ``rng``: a
-    ``torch.Generator`` or a draws source.  ``deposit_compact_frac`` < 1
-    compacts each round's deposits before the deposit (:func:`compact_round`).
-
-    Returns (hp, emitted_per_light, deposits_dropped): normalise the image
-    by ``emitted_per_light`` (rounds x photons without regen); a nonzero
-    drop count means the compaction or a capped deposit backend lost flux.
+    With a backend that has ``prepare``, ``pack_state`` and ``packed_call``
+    and is not differentiable (the tile deposit), every round runs in the
+    backend's layout space: the state is scattered in once and gathered out
+    by :meth:`finish`.  Otherwise it stays in hit-point order, where
+    autograd reaches a differentiable backend's custom backward.
     """
-    draws = as_draws(rng)
-    # A differentiable backend keeps the hit-point-order path: packed_call
-    # would bypass its custom backward.
-    packed_mode = (hasattr(deposit_fn, "packed_call") and hasattr(deposit_fn, "prepare")
-                   and not getattr(deposit_fn, "differentiable", False))
-    raw_call = deposit_fn
-    if hasattr(deposit_fn, "prepare"):
-        prep = deposit_fn.prepare(hp)
-        raw_call = partial(deposit_fn, prep=prep)
-    if getattr(deposit_fn, "returns_aux", False):
-        dep_call = raw_call
-    else:
-        def dep_call(hp_, dep_):
-            d_n, d_tao = raw_call(hp_, dep_)
-            return d_n, d_tao, torch.zeros((), dtype=torch.int32, device=d_n.device)
 
-    if packed_mode:
-        # The whole rounds loop in layout space: state scatters in once and
-        # gathers out once (Raytracer.h:156 applies wgt / pi per round).
-        r2_pad, wgt_pad = deposit_fn.pack_state(hp, prep)
-        g = prep.g
-        nphot_pad = torch.zeros_like(r2_pad)
-        nphot_pad[g] = hp.nphot
-        tao_pad = torch.zeros_like(wgt_pad)
-        tao_pad[g] = hp.tao
-        state = (r2_pad, tao_pad, nphot_pad)
+    def __init__(self, deposit_fn, hp: HitPoints):
+        self.hp = hp
+        self.packed = (hasattr(deposit_fn, "packed_call") and hasattr(deposit_fn, "prepare")
+                       and not getattr(deposit_fn, "differentiable", False))
+        self.deposit_fn = deposit_fn
+        self.prep = deposit_fn.prepare(hp) if hasattr(deposit_fn, "prepare") else None
+        self.aux = getattr(deposit_fn, "returns_aux", False)
+        if self.packed:
+            r2_pad, self.wgt_pad = deposit_fn.pack_state(hp, self.prep)
+            nphot_pad = torch.zeros_like(r2_pad)
+            nphot_pad[self.prep.g] = hp.nphot
+            tao_pad = torch.zeros_like(self.wgt_pad)
+            tao_pad[self.prep.g] = hp.tao
+            self.state = (r2_pad, tao_pad, nphot_pad)
+        else:
+            self.state = hp
 
-        def fold_state(state, dep):
-            r2_p, tao_p, nph_p = state
-            cnt, fl, ovf = deposit_fn.packed_call(r2_p, dep, prep)
-            d_tao = wgt_pad * fl / math.pi
-            return ppm_update_arrays(r2_p, tao_p, nph_p, cnt, d_tao,
-                                     update_mode), ovf
+    def deposit(self, state, dep: Deposits):
+        """(photon counts, raw flux, overflow) of one batch of deposits into
+        ``state``; the raw flux becomes the PPM update's by :meth:`flux`."""
+        if self.packed:
+            return self.deposit_fn.packed_call(state[0], dep, self.prep)
+        kw = {} if self.prep is None else {"prep": self.prep}
+        out = self.deposit_fn(state, dep, **kw)
+        if self.aux:
+            return out
+        return out[0], out[1], torch.zeros((), dtype=torch.int32, device=out[0].device)
 
-        def finish_state(state):
-            r2_p, tao_p, nph_p = state
-            # Invalid hit points keep their values (their slots hold r2 = -1).
-            v = hp.valid
-            return hp.replace(r2=torch.where(v, r2_p[g], hp.r2),
-                              tao=torch.where(v[:, None], tao_p[g], hp.tao),
-                              nphot=torch.where(v, nph_p[g], hp.nphot))
-    else:
-        state = hp
+    def flux(self, raw):
+        """Layout space applies the hit points' weights and 1 / pi here
+        (Raytracer.h:156); hit-point order got them from the backend."""
+        return self.wgt_pad * raw / math.pi if self.packed else raw
 
-        def fold_state(state, dep):
-            d_n, d_tao, ovf = dep_call(state, dep)
-            return ppm_update(state, d_n, d_tao, update_mode), ovf
+    def update(self, state, cnt, d_tao, mode: str):
+        if self.packed:
+            return ppm_update_arrays(*state, cnt, d_tao, mode)
+        return ppm_update(state, cnt, d_tao, mode)
 
-        def finish_state(state):
+    def finish(self, state) -> HitPoints:
+        if not self.packed:
             return state
+        # Invalid hit points keep their values (their slots hold r2 = -1).
+        r2_p, tao_p, nph_p = state
+        hp, g, v = self.hp, self.prep.g, self.hp.valid
+        return hp.replace(r2=torch.where(v, r2_p[g], hp.r2),
+                          tao=torch.where(v[:, None], tao_p[g], hp.tao),
+                          nphot=torch.where(v, nph_p[g], hp.nphot))
 
+
+def run_rounds(scene: Scene, rng, n_rounds: int, photons_per_round: int, fold,
+               max_depth: int = MAX_DEPTH, newton_fn=None, debias_roulette: bool = False,
+               regen: bool = False, deposit_compact_frac: float = 1.0):
+    """Trace ``n_rounds`` rounds of ``photons_per_round`` photons a light and
+    hand each round's deposits, compacted (:func:`compact_round`), to
+    ``fold(dep) -> overflow``.  A fresh batch each round (``regen=False``:
+    the emission's uniforms, then each segment's), or persistent lanes that
+    refill from the lights every segment (``regen=True``).  Returns
+    (emitted per light, dropped and overflowed deposits)."""
+    draws = as_draws(rng)
     L = scene.light_pos.shape[0]
     dev = scene.light_pos.device
     drops = torch.zeros((), dtype=torch.int32, device=dev)
@@ -147,10 +146,8 @@ def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
             dep = photon_trace(scene, draws, org, dir, flux, max_depth,
                                debias_roulette=debias_roulette, newton_fn=newton_fn)
             dep, dropped = compact_round(dep, deposit_compact_frac)
-            state, ovf = fold_state(state, dep)
-            drops = drops + dropped + ovf
-        emitted = torch.tensor(float(n_rounds * photons_per_round), device=dev)
-        return finish_state(state), emitted, drops
+            drops = drops + dropped + fold(dep)
+        return torch.tensor(float(n_rounds * photons_per_round), device=dev), drops
 
     pstate = regen_state_init(L, photons_per_round, dev)
     emitted = torch.zeros((L,), dtype=torch.float32, device=dev)
@@ -160,22 +157,73 @@ def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
             photons_per_round, pstate, max_depth,
             debias_roulette=debias_roulette, newton_fn=newton_fn)
         dep, dropped = compact_round(dep, deposit_compact_frac)
-        state, ovf = fold_state(state, dep)
+        drops = drops + dropped + fold(dep)
         emitted = emitted + e
-        drops = drops + dropped + ovf
     # Per-light counts agree to within one photon: their mean normalises.
-    return finish_state(state), emitted.mean(), drops
+    return emitted.mean(), drops
+
+
+def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
+                  photons_per_round: int, max_depth: int = MAX_DEPTH,
+                  update_mode: str = "sppm", deposit_fn=deposit_bruteforce,
+                  newton_fn=None, debias_roulette: bool = False,
+                  regen: bool = False, deposit_compact_frac: float = 1.0,
+                  psum=None):
+    """Photon-mapping rounds (Raytracer.h:210-295): :func:`run_rounds`'s
+    batches deposited into the hit points and folded in by the PPM update,
+    in the state :class:`RoundState` picks.  ``rng``: a
+    ``torch.Generator`` or a draws source.  ``psum``: with photons sharded
+    over ranks (``parallel/shard.py``), the sum over those ranks
+    (``Mesh.all_reduce`` or ``all_reduce_grad``), applied to each round's
+    photon counts and flux increments before the update, in layout space
+    on the packed path (JAX's ``psum_axis``).
+
+    Returns (hp, emitted_per_light, deposits_dropped): normalise the image
+    by ``emitted_per_light`` (rounds x photons without regen); a nonzero
+    drop count means the compaction or a capped deposit backend lost flux.
+    """
+    rs = RoundState(deposit_fn, hp)
+    state = rs.state
+
+    def fold(dep):
+        nonlocal state
+        cnt, raw, ovf = rs.deposit(state, dep)
+        d_tao = rs.flux(raw)
+        if psum is not None:
+            cnt, d_tao = psum(cnt), psum(d_tao)
+        state = rs.update(state, cnt, d_tao, update_mode)
+        return ovf
+
+    emitted, drops = run_rounds(scene, rng, n_rounds, photons_per_round, fold, max_depth,
+                                newton_fn, debias_roulette, regen, deposit_compact_frac)
+    return rs.finish(state), emitted, drops
 
 
 def estimate_image(hp: HitPoints, n_pixels: int, total_photons) -> torch.Tensor:
     """Radiance per pixel: sum over the pixel's hit points of
-    tao / (pi r2 photons) (Raytracer.h:281-294).  Returns (n_pixels, 3)."""
+    tao / (pi r2 photons) (Raytracer.h:281-294).  Returns (n_pixels, 3).
+
+    Each pixel adds its hit points in buffer order, as JAX's scatter-add
+    on the CPU does, on every device: the k-th hit point of every pixel is
+    added in the k-th ``index_add_``, whose indices are then distinct, so
+    the card's atomics meet no two adds to one pixel and the image is the
+    same bit for bit on every run."""
     scale = torch.where(hp.valid, 1.0 / (math.pi * hp.r2 * total_photons), 0.0)
     contrib = hp.tao * scale[:, None]
-    img = torch.zeros((n_pixels + 1, 3), dtype=hp.tao.dtype, device=hp.tao.device)
-    idx = torch.where(hp.valid, hp.pixel, n_pixels).long()
-    img.index_add_(0, idx, contrib)
-    return img[:n_pixels]
+    img = torch.zeros((n_pixels, 3), dtype=hp.tao.dtype, device=hp.tao.device)
+    key = torch.where(hp.valid, hp.pixel.long(), n_pixels)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    pos = torch.arange(key.shape[0], device=key.device)
+    start = torch.ones_like(hp.valid)
+    start[1:] = sk[1:] != sk[:-1]
+    place = torch.empty_like(pos)
+    place[order] = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    place = torch.where(hp.valid, place, -1)
+    for k in range(int(place.max()) + 1 if place.numel() else 0):
+        m = place == k
+        img.index_add_(0, key[m], contrib[m])
+    return img
 
 
 def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,

@@ -46,9 +46,26 @@ def test_presets_exist():
 
 
 def test_sharded_flags_exit_nonzero(capsys):
-    for flag in ("--sharded", "--hp-sharded"):
-        assert cli.main([flag, "--platform", "cpu"]) != 0
-        assert "Slice D" in capsys.readouterr().err
+    """The sharded flags render (tests/test_torch_multihost.py runs them
+    under torchrun), but as in the JAX package ``--hp-sharded`` needs
+    ``--sharded`` and the sharded render takes no checkpoint: those exit
+    non-zero, saying why."""
+    assert cli.main(["--hp-sharded", "--platform", "cpu"]) != 0
+    assert "needs --sharded" in capsys.readouterr().err
+    assert cli.main(["--sharded", "--checkpoint", "ck.npz", "--platform", "cpu"]) != 0
+    assert "no --checkpoint" in capsys.readouterr().err
+
+
+def test_sharded_flag_renders_as_one_rank(tmp_path, capsys):
+    """Without torchrun ``--sharded`` renders on a 1 x 1 mesh."""
+    from PIL import Image
+
+    out = tmp_path / "s.png"
+    rc = cli.main(["--platform", "cpu", "--scene", "cornell_diffuse", "--res", "16",
+                   "--passes", "1", "--rounds", "1", "--photons", "256", "--depth", "3",
+                   "--sharded", "--out", str(out)])
+    assert rc == 0 and Image.open(out).size == (16, 16)
+    assert "sharded over 1 x 1 ranks: dropped 0, deposits_dropped 0" in capsys.readouterr().out
 
 
 def test_no_card_and_no_cpu_flag_raises(monkeypatch):

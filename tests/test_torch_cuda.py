@@ -844,3 +844,32 @@ def test_dot_rounds_on_the_card_as_on_the_cpu(cuda_device):
     g = torch.Generator().manual_seed(0)
     a, b = (torch.randn((1 << 16, 3), generator=g) * 50 for _ in range(2))
     assert torch.equal(dot(a.to(cuda_device), b.to(cuda_device)).cpu(), dot(a, b))
+
+
+def test_one_rank_sharded_pass_is_the_pass_on_the_card(cuda_device):
+    """On a 1 x 1 mesh (no process group) the sharded pass through the
+    Newton and tile kernels equals ``make_pass_fn``'s bit for bit, the
+    gather and the ring alike."""
+    from raytrace3_tpu_torch.parallel.mesh import make_mesh
+    from raytrace3_tpu_torch.parallel.shard import make_sharded_pass_fn
+    from raytrace3_tpu_torch.render.driver import (CAMERA_LOOK, CAMERA_POS, build_scene,
+                                                   make_pass_fn)
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(scene="full", width=64, height=64, rounds=2, photons_per_round=4096,
+                       atlas_res=32, photon_regen=True, hitpoint_factor=2.0,
+                       eye_compact_schedule=((1, 0.25), (4, 0.04)))
+    scene = build_scene(cfg, cuda_device)
+    depo = DepositTile(tile=256, chunk=2048)
+    newton = newton_kernel.make_newton(10, 8)
+    before = (newton_kernel.KERNEL.launches, deposit_kernel.KERNEL.launches)
+    want, _ = make_pass_fn(scene, cfg, CAMERA_POS, CAMERA_LOOK, depo, newton)(
+        torch.Generator(device=cuda_device).manual_seed(2))
+    for ring in (False, True):
+        fn = make_sharded_pass_fn(scene, cfg, CAMERA_POS, CAMERA_LOOK,
+                                  make_mesh(device=cuda_device), depo, newton, hp_sharded=ring)
+        g = torch.Generator(device=cuda_device).manual_seed(2)
+        img, st = fn(g, g)
+        assert torch.equal(img, want), ring
+        assert int(st["dropped"]) == 0 and int(st["deposits_dropped"]) == 0
+    assert newton_kernel.KERNEL.launches > before[0] and deposit_kernel.KERNEL.launches > before[1]

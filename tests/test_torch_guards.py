@@ -44,6 +44,8 @@ def test_package_and_smoke_script_import_no_jax():
         "assert len(names) >= 30, names\n"
         "assert {'raytrace3_tpu_torch.cli', 'raytrace3_tpu_torch.ops.grid', "
         "'raytrace3_tpu_torch.utils.image'} <= set(names), names\n"
+        "assert {'raytrace3_tpu_torch.parallel.' + m for m in "
+        "('mesh', 'shard', 'ring', 'launch', 'dryrun')} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     assert proc.returncode == 0, proc.stderr
@@ -75,6 +77,30 @@ def test_tf32_is_off_after_import():
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n")
     assert proc.returncode == 0, proc.stderr
+
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def test_tf32_is_off_in_the_sharded_ranks():
+    """The sharded pass runs in processes of its own (``parallel.launch``
+    and torchrun's ``python -m raytrace3_tpu_torch.cli``): TF32 is off in
+    them too, whatever the parent set."""
+    proc = _python(
+        "import torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = True\n"
+        "torch.backends.cudnn.allow_tf32 = True\n"
+        "import sys; sys.path.insert(0, 'tests')\n"
+        "from raytrace3_tpu_torch.parallel.launch import spawn\n"
+        "from test_torch_guards import _tf32_flags\n"
+        "if __name__ == '__main__':\n"
+        "    assert spawn(_tf32_flags, 2, backend=\"gloo\") == [(False, False)] * 2\n"
+        "    import raytrace3_tpu_torch.cli, raytrace3_tpu_torch.parallel.shard\n"
+        "    assert _tf32_flags() == (False, False)\n"
+        "    print('ok')\n")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok")
 
 
 def test_nvcc_flags_keep_ieee_rounding():

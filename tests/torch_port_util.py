@@ -150,6 +150,18 @@ _JAX_STEPS = {"_eye_pass_compact.<locals>.step": "eye",
               "photon_trace.<locals>.step": "static"}
 
 
+def as_tensors(tree):
+    """``tree`` (dicts, lists and tuples) with every array leaf a tensor, for
+    ``torch.save`` to hand to a rank (``torch.load(weights_only=True)``)."""
+    if isinstance(tree, dict):
+        return {k: as_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(as_tensors(x) for x in tree)
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree
+    return torch.as_tensor(np.array(tree))
+
+
 def _torch(tree):
     if isinstance(tree, (tuple, list)):
         return tuple(_torch(x) for x in tree)
@@ -157,11 +169,13 @@ def _torch(tree):
 
 
 @contextlib.contextmanager
-def jax_walk_steps():
+def jax_walk_steps(pixel_offset: int = 0):
     """Record every step of the JAX eye and photon walks run within the
     block, as (input, output) pairs in the port's calling convention
     (``raytrace3_tpu_torch.testing``): "eye" (either eye wavefront),
     "photon" (the regen walk) and "static" (the static walk).
+    ``pixel_offset``: the slot eye wavefront's ``pixel_offset`` in the
+    block (its lanes' global pixel ids start there).
 
     Each walk's ``lax.scan`` body gets a host callback that hands out its
     carry in and out; the functions stay jitted.  The callback changes how
@@ -200,19 +214,19 @@ def jax_walk_steps():
         steps["photon"].append((_torch(carry), (_torch(carry_out), _torch(record))))
     for carry, (carry_out, record) in raw["static"]:
         steps["static"].append((_torch(carry), (_torch(carry_out), _torch(record))))
-    steps["eye"] += [_slot_step(c, o) for c, o in raw["eye_slot"]]
+    steps["eye"] += [_slot_step(c, o, pixel_offset) for c, o in raw["eye_slot"]]
 
 
-def _slot_lanes(state):
+def _slot_lanes(state, offset):
     R, K = state["active"].shape
     n = R * K
     return (np.asarray(state["org"]).reshape(n, 3), np.asarray(state["dir"]).reshape(n, 3),
             np.asarray(state["wgt"]).reshape(n, 3),
-            np.repeat(np.arange(R, dtype=np.int32), K),
+            np.repeat(np.arange(R, dtype=np.int32) + np.int32(offset), K),
             np.asarray(state["active"]).reshape(n))
 
 
-def _slot_step(carry, out):
+def _slot_step(carry, out, offset):
     """One step of JAX's slot eye wavefront (eye.py:138-213) in the port's
     ``eye_segment`` convention, lanes pixel-major with K slots a pixel.
     JAX scatters the segment's hit points straight into the buffer, so the
@@ -223,7 +237,7 @@ def _slot_step(carry, out):
     slot) and an unknown (NaN) normal.  Needs a buffer that did not fill
     up and a scene whose materials have at most one specular lobe."""
     (state, (hp, count, dropped)), ((state2, (hp2, count2, dropped2)), _) = carry, out
-    lanes, lanes2 = _slot_lanes(state), _slot_lanes(state2)
+    lanes, lanes2 = _slot_lanes(state, offset), _slot_lanes(state2, offset)
     c0, c1 = int(count), int(count2)
     assert c1 < np.asarray(hp2.pos).shape[0], "the hit-point buffer filled up"
     R, K = state["active"].shape
@@ -234,7 +248,7 @@ def _slot_step(carry, out):
     rows[:, 3:6] = np.nan
     rows[:, 9] = lanes[3]
     slots = np.arange(c0, c1)
-    pixel = np.asarray(hp2.pixel)[slots]
+    pixel = np.asarray(hp2.pixel)[slots] - offset
     lane = pixel * K + np.argmax(act[pixel], 1)
     rows[lane, 0:3] = np.asarray(hp2.pos)[slots]
     rows[lane, 3:6] = np.asarray(hp2.n)[slots]
@@ -242,3 +256,119 @@ def _slot_step(carry, out):
     rows[lane, 10] = 1.0
     n_dropped = np.asarray(dropped2) - np.asarray(dropped)
     return _torch(lanes), (_torch(lanes2), _torch(n_dropped), _torch(rows))
+
+
+def regen_rounds_draws(key, n_rounds: int, n_lanes: int, segs: int) -> list:
+    """The uniforms of ``n_rounds`` regen rounds from one key (sppm.py:181
+    and ring.py:200 split it per round), in port order."""
+    out = []
+    for k in jax.random.split(key, n_rounds):
+        out += regen_round_draws(k, n_lanes, segs)
+    return out
+
+
+def jitter_rays(cfg, key, base, look):
+    """(z, phi draws, org, dir) of a pass key's camera jitter, as JAX's
+    sharded pass draws it: ``kj, kp = split(key)``, then
+    ``uniform_sphere(kj)`` (shard.py:101-107).  Returns kp too."""
+    from raytrace3_tpu.core.sampling import uniform_sphere
+    from raytrace3_tpu.render.camera import emit_rays, look_at
+
+    kj, kp = jax.random.split(key)
+    ku, kv = jax.random.split(kj)
+    jitter = [_u(ku, (), -1.0, 1.0), _u(kv, (), 0.0, TWO_PI)]
+    pos = jnp.asarray(base, jnp.float32) + cfg.jitter * uniform_sphere(kj)
+    org, dirs = emit_rays(look_at(pos, jnp.asarray(look, jnp.float32), cfg.width, cfg.height))
+    return jitter, org, dirs, kp
+
+
+def sharded_emulation(scene, cfg, groups, n_shard: int, deposit_fn=None):
+    """JAX's photon-sharded rounds emulated on one device, as
+    tests/test_parallel.py:52-116 and tests/test_ring.py:23-164 do: for
+    each group ``(org, dirs, photon_keys)``, ``n_shard`` eye passes on the
+    ray shards (capacity C / n, global pixel ids), their hit points
+    concatenated, and per round every shard's photons (``fold``ed keys,
+    ``cfg.photons_per_round / n`` a light, static or regen walk) deposited
+    into all of them (``deposit_fn``, default the bruteforce) and summed
+    before one PPM update.  Each walk is recorded (``jax_walk_steps``).
+
+    Returns, per group, the image (H, W, 3), the eye pass's dropped count
+    summed over the shards and the emitted photons a light, and per group
+    and shard the eye steps, the photon steps and the photon draws in the
+    port's order.  One recording serves every group's photon walks (jitted
+    once, their steps split by their counts); each eye pass has its own
+    (its pixel offset).
+    """
+    from raytrace3_tpu.render.deposit import deposit_bruteforce
+    from raytrace3_tpu.render.eye import eye_pass
+    from raytrace3_tpu.render.light import emit_photons
+    from raytrace3_tpu.render.photon import (photon_trace, photon_trace_regen,
+                                             regen_state_init)
+    from raytrace3_tpu.render.sppm import estimate_image, ppm_update
+
+    deposit_fn = deposit_fn or deposit_bruteforce
+    R, segs = cfg.n_pixels, cfg.max_depth + 1
+    rs, cap = R // n_shard, cfg.hitpoint_capacity // n_shard
+    local = cfg.photons_per_round // n_shard
+    L = scene.light_pos.shape[0]
+    photon_scene = scene
+    if cfg.bezier_compact_frac_photon >= 0.0 and scene.has_bezier:
+        photon_scene = scene.replace(bezier_compact_frac=cfg.bezier_compact_frac_photon)
+    out = []
+    with jax_walk_steps() as steps:
+        static = jax.jit(lambda k: photon_trace(
+            photon_scene, k[1], *emit_photons(k[0], scene.light_pos, scene.light_color, local),
+            cfg.max_depth))
+        regen = jax.jit(lambda k, st: photon_trace_regen(
+            photon_scene, k, scene.light_pos, scene.light_color, local, st, cfg.max_depth))
+        depo = jax.jit(lambda hp, dep: deposit_fn(hp, dep)[:2])
+        update = jax.jit(lambda hp, dn, dt: ppm_update(hp, dn, dt, cfg.update_mode))
+        for org, dirs, photon_keys in groups:
+            hps, dropped, eye_steps = [], 0, []
+            for i in range(n_shard):
+                # A new function each time: a cached trace would report to
+                # the recording it was traced in.
+                eye = jax.jit(lambda o, d, off=i * rs: eye_pass(
+                    scene, o, d, cap, cfg.max_depth, cfg.slots, cfg.init_r2, pixel_offset=off,
+                    compact_schedule=cfg.eye_compact_schedule))
+                with jax_walk_steps(pixel_offset=i * rs) as eye_rec:
+                    hp_i, st_i = eye(org[i * rs:(i + 1) * rs], dirs[i * rs:(i + 1) * rs])
+                    jax.block_until_ready(hp_i)
+                hps.append(hp_i)
+                dropped += int(st_i["dropped"])
+                eye_steps.append(eye_rec["eye"])
+            hp = jax.tree.map(lambda *xs: jnp.concatenate(xs, 0), *hps)
+            rkeys = [jax.random.split(k, cfg.rounds) for k in photon_keys]
+            pstates = [regen_state_init(L, local) for _ in range(n_shard)]
+            emitted = 0.0
+            for r in range(cfg.rounds):
+                d_n = jnp.zeros(hp.capacity)
+                d_t = jnp.zeros((hp.capacity, 3))
+                for i in range(n_shard):
+                    if cfg.photon_regen:
+                        dep, pstates[i], e = regen(rkeys[i][r], pstates[i])
+                        emitted += float(jnp.mean(e))
+                    else:
+                        dep = static(jax.random.split(rkeys[i][r]))
+                        emitted += local
+                    dn_i, dt_i = depo(hp, dep)
+                    d_n = d_n + dn_i
+                    d_t = d_t + dt_i
+                hp = update(hp, d_n, d_t)
+            img = estimate_image(hp, R, emitted)
+            if cfg.photon_regen:
+                draws = [regen_rounds_draws(k, cfg.rounds, L * local, segs) for k in photon_keys]
+            else:
+                draws = [static_rounds_draws(k, cfg.rounds, L, local, segs) for k in photon_keys]
+            out.append(dict(img=np.asarray(img).reshape(cfg.height, cfg.width, 3),
+                            dropped=dropped, emitted=emitted, draws=draws, eye=eye_steps))
+    walk = "photon" if cfg.photon_regen else "static"
+    photon_steps = iter(steps[walk])
+    for g in out:
+        assert all(len(e) == segs for e in g["eye"])
+        per_round = [[[next(photon_steps) for _ in range(segs)] for _ in range(n_shard)]
+                     for _ in range(cfg.rounds)]
+        g["photon"] = [sum((per_round[r][i] for r in range(cfg.rounds)), [])
+                       for i in range(n_shard)]
+    assert next(photon_steps, None) is None
+    return out
