@@ -103,7 +103,20 @@ with a non-zero exit when it fails:
      inputs (the gathered hit points, the rank's deposits, the cotangent
      the loss gave);
  18. the port's dry run (``parallel/dryrun.py``) on 4 ranks, a 2 x 2 mesh,
-     as phase 17 runs its ranks.
+     as phase 17 runs its ranks;
+ 19. the Newton kernel against its plain twin, bit for bit, at 4, 16, 32
+     and 64 restarts (the path runs 8) on the restart study's three ray
+     populations (``scripts/torch_newton_restart_study.py``) cut to 16,384
+     rays each, with its times, bound, open pairs and lane fill per restart
+     count, then the study's metrics at that cut;
+ 20. the grad check's ``cuda+lane`` column (``scripts/torch_gradcheck.py``),
+     its ctrl group cut to MIN_CHECKED coordinates of one realisation: the
+     pass rate printed, a non-finite gradient failing, and the lane
+     deposit and its transpose held to their twins on the first round's
+     inputs as phase 17 holds them;
+ 21. ten steps of the albedo recovery at 128^2
+     (``scripts/torch_inverse_render.py``): the loss falls, both drop
+     counters are 0, s/step printed.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -133,8 +146,9 @@ import torch
 import bench_torch
 from bench_torch import BASE, BENCH, BOUNDS, LOOK, RESTARTS, TILE
 
-#: Newton: the kernel evaluates in the plain twin's operation order with
-#: -fmad=false, so hits, patch ids and t, u, v must agree bit for bit.
+#: Newton: the kernel evaluates in the plain twin's operation order and
+#: contracts a product into an add (``__fmaf_rn``) exactly where the twin's
+#: ``fma32`` does, so hits, patch ids and t, u, v must agree bit for bit.
 NEWTON_ATOL = 0.0
 #: Deposit: counts exactly; flux sums differ only in summation order (the
 #: plain twin accumulates with atomics), DEPOSIT_FLUX_RTOL of a slot's flux.
@@ -228,6 +242,20 @@ GLOO_PASSES = 2
 GLOO_TRAIN_STEPS = 2
 #: Seconds a spawned phase may run before its ranks are terminated.
 SPAWN_TIMEOUT = 600
+#: Phase 19: the restart study's populations (scripts/torch_newton_restart_
+#: study.py, JAX's draws) cut to every 16th ray, 16,384 rays each, and every
+#: restart count the study solves them at (its candidates and its oracle);
+#: the plain twin runs on the rays that open some patch box, STUDY_CHUNK a
+#: call (the others must read a miss from the kernel too).
+STUDY_RAYS = 16384
+STUDY_RESTARTS = (4, 8, 16, 32, 64)
+STUDY_CHUNK = 4096
+#: Phase 20: the grad check's cuda+lane column, its ctrl group cut to
+#: MIN_CHECKED["ctrl"] candidates (the largest gradients) of one
+#: realisation.
+GRADCHECK_SEED = 0
+#: Phase 21: steps of the albedo recovery at 128^2.
+INVERSE_STEPS = 10
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -1602,6 +1630,162 @@ def phase_dryrun(card: str) -> dict:
     return launches
 
 
+def hold_newton(org, dir, ctrl, iters: int, restarts: int) -> dict:
+    """Kernel #1 on the rays against its plain twin: hits, patch ids and
+    t, u, v to NEWTON_ATOL.  The twin solves the rays that open some patch
+    box, STUDY_CHUNK a call; the others must read a miss from the kernel."""
+    from raytrace3_tpu_torch.ops.newton_kernel import BIG, open_pairs, solve, solve_plain
+
+    R, device = org.shape[0], org.device
+    got = solve(org, dir, ctrl, iters, restarts)
+    want = [torch.full((R,), BIG, device=device), torch.zeros(R, device=device),
+            torch.zeros(R, device=device), torch.zeros(R, dtype=torch.int32, device=device),
+            torch.zeros(R, dtype=torch.bool, device=device)]
+    rows_open = torch.nonzero(open_pairs(org, dir, ctrl).any(1)).squeeze(1)
+    for i in range(0, len(rows_open), STUDY_CHUNK):
+        idx = rows_open[i:i + STUDY_CHUNK]
+        for w, x in zip(want, solve_plain(org[idx], dir[idx], ctrl, iters, restarts)):
+            w[idx] = x
+    both = got[4] & want[4]
+    return dict(hits=int(want[4].sum()), hit_mismatch=int((got[4] != want[4]).sum()),
+                pid_mismatch=int((both & (got[3] != want[3])).sum()),
+                max_abs_err=max(float((g - w)[both].abs().max()) if bool(both.any()) else 0.0
+                                for g, w in zip(got[:3], want[:3])))
+
+
+def phase_restarts(card: str, device) -> tuple[dict, dict]:
+    """Phase 19: kernel #1 against its plain twin, bit for bit, at each of
+    STUDY_RESTARTS on each of the restart study's three populations cut to
+    STUDY_RAYS rays (the very calls the study makes), with its times on the
+    three together, bound, open pairs and lane fill per restart count; then
+    the study's metrics at that cut, the launch counters zeroed just before
+    and read just after."""
+    from raytrace3_tpu_torch.ops.newton_kernel import THREADS, drain_schedule, open_pairs, solve
+    from raytrace3_tpu_torch.testing import load_script
+
+    study = load_script("torch_newton_restart_study")
+    t0 = time.perf_counter()
+    ctrl = study.study_ctrl(device)
+    pops = {k: (o[::len(o) // STUDY_RAYS], d[::len(d) // STUDY_RAYS])
+            for k, (o, d) in study.populations(ctrl).items()}
+    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    rays = {k: (dev(o), dev(d)) for k, (o, d) in pops.items()}
+    org = torch.cat([o for o, _ in rays.values()])
+    dir = torch.cat([d for _, d in rays.values()])
+    R, B = org.shape[0], ctrl.shape[0]
+    gate = open_pairs(org, dir, ctrl)
+    by_restarts = {}
+    for r in STUDY_RESTARTS:
+        holds = {k: hold_newton(o, d, ctrl, study.ITERS, r) for k, (o, d) in rays.items()}
+        hits = sum(h["hits"] for h in holds.values())
+        hit_mismatch = sum(h["hit_mismatch"] for h in holds.values())
+        pid_mismatch = sum(h["pid_mismatch"] for h in holds.values())
+        err = max(h["max_abs_err"] for h in holds.values())
+        times = kernel_times(lambda: solve(org, dir, ctrl, study.ITERS, r))
+        open_lanes = int(gate.sum()) * r
+        sched = drain_schedule(gate, r)
+        ops = (B * NEWTON_BOX_OPS + R * NEWTON_RAY_OPS + R * B * NEWTON_PAIR_OPS
+               + open_lanes * (NEWTON_START_OPS + study.ITERS * NEWTON_ITER_OPS))
+        bound_ms, bound_by = bound(ops, R * 24 + B * 48 * 4 + R * 17)
+        by_restarts[str(r)] = dict(ms=times[0], call_ms=times[1], bound_ms=bound_ms,
+                                   bound_by=bound_by, open_pairs=int(gate.sum()),
+                                   lane_fill=sched["lane_fill"], hits=hits,
+                                   hit_mismatch=hit_mismatch, pid_mismatch=pid_mismatch,
+                                   max_abs_err=err)
+        print(f"[19] newton at {r} restarts on each of {', '.join(pops)} ({STUDY_RAYS} rays) "
+              f"x {B} patches vs its plain twin: " + "; ".join(
+                  f"{k} hits {h['hits']}, hit mismatches {h['hit_mismatch']}, pid mismatches "
+                  f"{h['pid_mismatch']}, max |dt, du, dv| {h['max_abs_err']:.3g}"
+                  for k, h in holds.items()) +
+              f"; on the {R} together: kernel {times[0]:.4f} ms device, {times[1]:.4f} ms a "
+              f"call, bound {bound_ms:.5f} ms ({bound_by}), {times[0] / bound_ms:.1f}x; "
+              f"{int(gate.sum())} of {R * B} pairs open, {THREADS // r} pairs a Newton step, "
+              f"{sched['drains']} drains in {sched['steps']} steps, lane fill "
+              f"{sched['lane_fill']:.3f} ({card})")
+        if hit_mismatch or pid_mismatch or not err <= NEWTON_ATOL or hits == 0:
+            raise SystemExit(f"phase 19 failed: the Newton kernel disagrees with its plain twin "
+                             f"at {r} restarts")
+    zero_counters()
+    torch.cuda.synchronize()
+    rows, _ = study.study(pops, ctrl)
+    launches = read_counters()
+    for name, row in rows.items():
+        print(f"[19] study at {STUDY_RAYS} rays, {name}: oracle (64 restarts) hits "
+              f"{row['oracle_hits']}; " + "; ".join(
+                  f"{r}: miss {row[r]['miss']}, root_diff {row[r]['root_diff']} "
+                  f"({row[r]['root_diff_rate']:.4f}), false_hit {row[r]['false_hit']}"
+                  for r in map(str, study.CANDIDATES)))
+    print(f"[19] {time.perf_counter() - t0:.1f} s; study launches {launches} ({card})")
+    if launches["newton"] == 0:
+        raise SystemExit("phase 19 failed: the study launched no Newton kernel")
+    return by_restarts, launches
+
+
+def phase_gradcheck(card: str, device) -> dict:
+    """Phase 20: the grad check's cuda+lane column, ctrl group only, on
+    MIN_CHECKED["ctrl"] coordinates of one realisation; the lane deposit
+    and its transpose held to their twins on the first round's inputs, and
+    Newton on a photon segment of its first render."""
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.testing import load_script
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    gc = load_script("torch_gradcheck")
+    t0 = time.perf_counter()
+    n = gc.MIN_CHECKED["ctrl"]
+    picks = {"ctrl": (n, 0, gc.PICKS["ctrl"][2])}
+    newton_fn = make_newton(RenderConfig().newton_iters, 8)
+    with held_inputs({"deposit_lane": 0, "deposit_lane_bwd": 0}, newton_fn) as (held, solver):
+        zero_counters()
+        torch.cuda.synchronize()
+        loss, params, drops = gc.make_loss("cuda+lane", device, **{
+            k: gc.DEFAULTS[k] for k in ("res", "photons", "rounds")}, newton_fn=solver)
+        results = gc.check_at_seed(loss, params, GRADCHECK_SEED, groups=("ctrl",), picks=picks)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    g = gc.summarize("ctrl", results["ctrl"])
+    print(f"[20] grad check, ctrl[cuda+lane], {n} candidates of realisation "
+          f"{GRADCHECK_SEED}: {g['passed']} of {g['checked']} scored pass (rate "
+          f"{g['pass_rate']}, {g['discont_excluded']} excluded); drops {drops}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s ({card})")
+    check_holds(20, "grad check", [hold_kernels(held, newton_fn)],
+                {"deposit_lane", "deposit_lane_bwd", "newton"}, card)
+    if drops["deposits_dropped"] or drops["dropped"]:
+        raise SystemExit("phase 20 failed: the grad check's renders dropped")
+    return launches
+
+
+def phase_inverse(card: str, device) -> dict:
+    """Phase 21: INVERSE_STEPS steps of the albedo recovery at 128^2 (the
+    lane deposit's differentiable backward): the loss falls, no deposit or
+    eye ray is dropped, and the lane deposit and its transpose hold to
+    their twins on their first calls' inputs (the target's first round and
+    the first backward)."""
+    from raytrace3_tpu_torch.testing import load_script
+
+    inv = load_script("torch_inverse_render")
+    args = inv.build_parser().parse_args(["--exp", "albedo", "--steps", str(INVERSE_STEPS)])
+    with held_inputs({"deposit_lane": 0, "deposit_lane_bwd": 0}) as (held, _):
+        zero_counters()
+        torch.cuda.synchronize()
+        record, _ = inv.recover(args, device)
+        torch.cuda.synchronize()
+        launches = read_counters()
+    losses = [v for _, v in record["loss_curve"]]
+    print(f"[21] albedo recovery at {record['res']}^2, {INVERSE_STEPS} steps: loss "
+          f"{record['initial_loss']:.4g} -> {record['final_loss']:.4g}, identifiable parameter "
+          f"error {record['initial_param_err_identifiable']} -> "
+          f"{record['final_param_err_identifiable']}, {record['step_seconds_mean']} s/step; "
+          f"dropped {record['eye_dropped_total']}, deposits_dropped "
+          f"{record['deposits_dropped_total']}; launches {launches} ({card})")
+    check_holds(21, "albedo recovery", [hold_kernels(held)],
+                {"deposit_lane", "deposit_lane_bwd"}, card)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and record["eye_dropped_total"] == 0 and record["deposits_dropped_total"] == 0):
+        raise SystemExit("phase 21 failed: the albedo recovery's loss did not fall, or it dropped")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -1635,13 +1819,20 @@ def main() -> int:
     sharded = phase_sharded(card)
     sharded_gloo = phase_sharded_gloo(card)
     dryrun = phase_dryrun(card)
+    t0 = time.perf_counter()
+    newton["by_restarts"], restarts = phase_restarts(card, device)
+    gradcheck = phase_gradcheck(card, device)
+    inverse = phase_inverse(card, device)
+    print(f"[19-21] {time.perf_counter() - t0:.1f} s ({card})")
     # Each kernel's launches on each path, each path counted from 0: the
     # render pass (phase 5), the train step (phase 9), the CLI at
     # reference1024 (phase 11), the stream deposit's pass (phase 12), the
-    # sharded render (phase 16), the two-rank runs on one card (phase 17) and
-    # the dry run (phase 18), summed over their ranks.
+    # sharded render (phase 16), the two-rank runs on one card (phase 17),
+    # the dry run (phase 18), summed over their ranks, the restart study
+    # (phase 19), the grad check (phase 20) and the albedo recovery (phase 21).
     paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches,
-             "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun}
+             "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun,
+             "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse}
     rows = (newton, deposit, lane, lane_bwd, block, stream)
     for row in rows:
         name = row["name"]
@@ -1652,7 +1843,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in rows]}))
+    print(json.dumps({"kernels": [{k: d[k] for k in keys + ("by_restarts",) if k in d}
+                                  for d in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,3 +37,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def record_fields(device) -> dict:
+    """The keys a record written by a port script carries about where it
+    ran: ``device`` (``"cuda"`` or ``"cpu"``), and on the card its
+    ``card`` name and ``power_limit`` (``card_line``'s two fields; None on
+    the CPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device": dev.type, "card": None, "power_limit": None}
+    name, limit = (s.strip() for s in card_line().rsplit(",", 1))
+    return {"device": dev.type, "card": name, "power_limit": limit}

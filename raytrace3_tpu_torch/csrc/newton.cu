@@ -55,7 +55,10 @@
 //     (BIG, 0, 0, pid 0, hit false); accepted t are clipped to +-1e4 < BIG.
 // Built with -fmad=false and without fast math, so every operation rounds
 // like the plain PyTorch version in raytrace3_tpu_torch/ops/newton_kernel.py
-// and the slab test keeps IEEE 1/0 = inf; clamps and min/max propagate NaN
+// and the slab test keeps IEEE 1/0 = inf.  The Newton arithmetic contracts
+// multiply-adds where XLA's CPU code does (the reference's rounding, fault
+// F2 of ROADMAP section 3), with explicit __fmaf_rn, which the twin rounds
+// the same way (fma32); clamps and min/max propagate NaN
 // like jnp.clip/minimum.  The launch refuses, with cudaErrorInvalidValue, a
 // shape it cannot take.
 //
@@ -119,17 +122,36 @@ __device__ __forceinline__ void bern(float t, float b[4]) {
   b[3] = t * t * t;
 }
 
+// dB/dt.  (6 t) s is shared by the two middle terms and (3 t) t by the third
+// and the last, so XLA's CPU code contracts only the second term's (3 s) s.
 __device__ __forceinline__ void dbern(float t, float b[4]) {
   const float s = 1.0f - t;
+  const float ts6 = 6.0f * t * s, tt3 = 3.0f * t * t;
   b[0] = -3.0f * s * s;
-  b[1] = 3.0f * s * s - 6.0f * t * s;
-  b[2] = 6.0f * t * s - 3.0f * t * t;
-  b[3] = 3.0f * t * t;
+  b[1] = __fmaf_rn(3.0f * s, s, -ts6);
+  b[2] = ts6 - tt3;
+  b[3] = tt3;
+}
+
+// a0 b0 + a1 b1 + a2 b2 (+ a3 b3) from the left, each product contracted into
+// the add that takes it, as XLA's CPU code sums them: fma(a0, b0, a1 b1), then
+// fma(ak, bk, sum) (ops/newton_kernel.py:_dot).
+__device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1, float a2, float b2) {
+  return __fmaf_rn(a2, b2, __fmaf_rn(a0, b0, a1 * b1));
+}
+
+__device__ __forceinline__ float dot4(const float (&a)[4], const float (&b)[4]) {
+  return __fmaf_rn(a[3], b[3], __fmaf_rn(a[2], b[2], __fmaf_rn(a[0], b[0], a[1] * b[1])));
+}
+
+// a b - c d as XLA's CPU code contracts it (ops/newton_kernel.py:_cross).
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -(c * d));
 }
 
 // S(u, v) and optionally dS/du, dS/dv; g = ctrl[patch] as [i][k][c], i pairs
-// with the v basis and k with the u basis.  Summation order as in the TPU
-// kernel's patch_eval.
+// with the v basis and k with the u basis.  Summation order and contraction
+// as in ops/newton_kernel.py:_patch_eval.
 template <bool kDerivs>
 __device__ __forceinline__ void patch_eval(const float (&g)[48], float u, float v,
                                            float s[3], float su[3], float sv[3]) {
@@ -142,26 +164,18 @@ __device__ __forceinline__ void patch_eval(const float (&g)[48], float u, float 
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    float acc = 0.0f, accu = 0.0f, accv = 0.0f;
+    float rowu[4], rowdu[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float rowu = 0.0f, rowdu = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float gik = g[(i * 4 + k) * 3 + c];
-        rowu = rowu + bu[k] * gik;
-        if (kDerivs) rowdu = rowdu + du[k] * gik;
-      }
-      acc = acc + bv[i] * rowu;
-      if (kDerivs) {
-        accu = accu + bv[i] * rowdu;
-        accv = accv + dv[i] * rowu;
-      }
+      const float gi[4] = {g[(i * 4) * 3 + c], g[(i * 4 + 1) * 3 + c], g[(i * 4 + 2) * 3 + c],
+                           g[(i * 4 + 3) * 3 + c]};
+      rowu[i] = dot4(bu, gi);
+      if (kDerivs) rowdu[i] = dot4(du, gi);
     }
-    s[c] = acc;
+    s[c] = dot4(bv, rowu);
     if (kDerivs) {
-      su[c] = accu;
-      sv[c] = accv;
+      su[c] = dot4(bv, rowdu);
+      sv[c] = dot4(dv, rowu);
     }
   }
 }
@@ -196,40 +210,40 @@ __device__ __forceinline__ void newton_lane(const float* __restrict__ gs, const 
   float s[3], su[3], sv[3];
   float u = u0, v = v0;
   patch_eval<false>(g, u, v, s, su, sv);
-  float t = (s[0] - ox) * dx + (s[1] - oy) * dy + (s[2] - oz) * dz;
+  float t = dot3(s[0] - ox, dx, s[1] - oy, dy, s[2] - oz, dz);
   best_t = kBig;
   best_u = 0.0f;
   best_v = 0.0f;
   for (int it = 0; it < iters; ++it) {
     patch_eval<true>(g, u, v, s, su, sv);
-    const float rx = ox + t * dx - s[0];
-    const float ry = oy + t * dy - s[1];
-    const float rz = oz + t * dz - s[2];
-    const float cx = su[1] * sv[2] - su[2] * sv[1];
-    const float cy = su[2] * sv[0] - su[0] * sv[2];
-    const float cz = su[0] * sv[1] - su[1] * sv[0];
-    const float det = dx * cx + dy * cy + dz * cz;
+    const float rx = __fmaf_rn(t, dx, ox) - s[0];
+    const float ry = __fmaf_rn(t, dy, oy) - s[1];
+    const float rz = __fmaf_rn(t, dz, oz) - s[2];
+    const float cx = cross_term(su[1], sv[2], su[2], sv[1]);
+    const float cy = cross_term(su[2], sv[0], su[0], sv[2]);
+    const float cz = cross_term(su[0], sv[1], su[1], sv[0]);
+    const float det = dot3(dx, cx, dy, cy, dz, cz);
     const bool ok = fabsf(det) > 1e-12f;
     const float inv_det = 1.0f / (ok ? det : 1.0f);
-    const float dt = -(rx * cx + ry * cy + rz * cz) * inv_det;
-    const float ex = ry * sv[2] - rz * sv[1];
-    const float ey = rz * sv[0] - rx * sv[2];
-    const float ez = rx * sv[1] - ry * sv[0];
-    const float du = (dx * ex + dy * ey + dz * ez) * inv_det;
-    const float fx = su[1] * rz - su[2] * ry;
-    const float fy = su[2] * rx - su[0] * rz;
-    const float fz = su[0] * ry - su[1] * rx;
-    const float dv = (dx * fx + dy * fy + dz * fz) * inv_det;
+    const float dt = -dot3(rx, cx, ry, cy, rz, cz) * inv_det;
+    const float ex = cross_term(ry, sv[2], rz, sv[1]);
+    const float ey = cross_term(rz, sv[0], rx, sv[2]);
+    const float ez = cross_term(rx, sv[1], ry, sv[0]);
+    const float du = dot3(dx, ex, dy, ey, dz, ez) * inv_det;
+    const float fx = cross_term(su[1], rz, su[2], ry);
+    const float fy = cross_term(su[2], rx, su[0], rz);
+    const float fz = cross_term(su[0], ry, su[1], rx);
+    const float dv = dot3(dx, fx, dy, fy, dz, fz) * inv_det;
     const float okf = ok ? 1.0f : 0.0f;
     t = clip(t + clip(dt, -1e4f, 1e4f) * okf, -1e4f, 1e4f);
     u = clip(u + clip(du, -8.0f, 8.0f) * okf, -8.0f, 8.0f);
     v = clip(v + clip(dv, -8.0f, 8.0f) * okf, -8.0f, 8.0f);
 
     patch_eval<false>(g, u, v, s, su, sv);
-    const float ax = ox + t * dx - s[0];
-    const float ay = oy + t * dy - s[1];
-    const float az = oz + t * dz - s[2];
-    const float res2 = ax * ax + ay * ay + az * az;
+    const float ax = __fmaf_rn(t, dx, ox) - s[0];
+    const float ay = __fmaf_rn(t, dy, oy) - s[1];
+    const float az = __fmaf_rn(t, dz, oz) - s[2];
+    const float res2 = dot3(ax, ax, ay, ay, az, az);
     if (res2 < res2_eps && u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f && t > kEps &&
         t < best_t) {
       best_t = t;
@@ -413,7 +427,23 @@ newton_kernel(const float* __restrict__ org, const float* __restrict__ dir,
   }
 }
 
+// out = __fmaf_rn(a, b, c) elementwise: the card's fused multiply-add, which
+// chip_smoke.py holds the twin's fma32 to.
+__global__ void fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                           const float* __restrict__ c, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __fmaf_rn(a[i], b[i], c[i]);
+}
+
 }  // namespace
+
+extern "C" int rt3_fma32(const float* a, const float* b, const float* c, float* out, int n,
+                         void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  fma_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a, b, c, out, n);
+  return (int)cudaGetLastError();
+}
 
 // Returns cudaErrorInvalidValue, launching nothing, for a shape the kernel
 // cannot take: no patch or more than kMaxPatches, restarts that do not

@@ -115,14 +115,16 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, camera_pose=None,
 
     ``rng``: a ``torch.Generator`` on the scene's device or a draws source.
     The pass is JAX's: the slot eye wavefront and the static photon walk.
-    ``with_drops``: also return the pass's ``deposits_dropped`` counter
-    (a work-cap overflow drops real flux and its gradient)."""
+    ``with_drops``: also return both drop counters, ``{"dropped",
+    "deposits_dropped"}``, as ``make_train_step``'s step does (a work-cap
+    overflow drops real flux and its gradient; JAX's returns the second
+    alone)."""
     run = _make_pass(scene, cfg, camera_pose, newton_fn, deposit_fn)
 
     def render(params, rng):
         img, stats = run(params, rng)
         if with_drops:
-            return img, stats["deposits_dropped"]
+            return img, {k: stats[k] for k in ("dropped", "deposits_dropped")}
         return img
 
     return render
@@ -134,6 +136,17 @@ def adam(lr: float = 1e-2):
     square root)."""
     return lambda tensors: torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999),
                                             eps=1e-8)
+
+
+def adam_cosine(tensors, lr: float, steps: int, alpha: float):
+    """(optimizer, scheduler): Adam as :func:`adam` under optax's
+    ``cosine_decay_schedule(lr, steps, alpha)``, the rate ``lr ((1 - alpha)
+    (1 + cos(pi t / steps)) / 2 + alpha)`` at step t, which is
+    ``CosineAnnealingLR(T_max=steps, eta_min=alpha lr)``.  Call the
+    scheduler's ``step()`` after each optimizer step."""
+    opt = adam(lr)(tensors)
+    return opt, torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=steps,
+                                                           eta_min=alpha * lr)
 
 
 def optimizer_tree(opt: torch.optim.Optimizer, params: dict) -> dict:

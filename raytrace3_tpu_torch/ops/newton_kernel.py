@@ -49,6 +49,9 @@ KERNEL = CudaKernel("newton.cu", "rt3_newton_solve", [
     ctypes.c_void_p, ctypes.c_void_p,                       # pid, hit
 ])
 
+#: The card's fused multiply-add, elementwise: what ``fma32`` is held to.
+FMA = CudaKernel("newton.cu", "rt3_fma32", [ctypes.c_void_p] * 4 + [ctypes.c_int])
+
 
 def restart_grid_shape(restarts: int) -> tuple[int, int]:
     """(gu, gv) with gu * gv = restarts, gu the largest divisor <= sqrt."""
@@ -69,39 +72,103 @@ def uv0_table(restarts: int) -> np.ndarray:
     return np.stack([uu.ravel(), vv.ravel()], -1).astype(np.float32)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as ``fmaf`` (CUDA's
+    ``__fmaf_rn``) and XLA's CPU code, which contracts a multiply into the
+    add that consumes it, compute it.  The product of two float32s is exact
+    in float64 and the sum is rounded there once.  Rounding that float64
+    sum to float32 rounds the exact sum correctly unless the float64
+    rounding put it exactly halfway between two float32s (its 29 low
+    mantissa bits 1 then 28 zeros, for results in float32's normal
+    range): those few are moved one float64 step toward the exact sum
+    (TwoSum's error term) first."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    half = (s.view(torch.int64) & _LOW29) == _HALF29
+    if bool(half.any()):
+        bb = s - p
+        err = (p - (s - bb)) + (c64 - bb)
+        toward = torch.where(err > 0, math.inf, -math.inf).double()
+        s = torch.where(half & (err != 0), torch.nextafter(s, toward), s)
+    return s.float()
+
+
+#: float64 mantissa bits below float32's precision, and their value at a
+#: float32 midpoint.
+_LOW29 = (1 << 29) - 1
+_HALF29 = 1 << 28
+
+
+def fma32_card(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``__fmaf_rn(a, b, c)`` on the card, for float32 CUDA tensors of one
+    shape (a check of ``fma32``; the solve does not call it)."""
+    dev = a.device
+    for name, x in (("a", a), ("b", b), ("c", c)):
+        check(name, x, torch.float32, tuple(a.shape), dev)
+    out = torch.empty_like(a)
+    FMA.launch(dev, ptr(a), ptr(b), ptr(c), ptr(out), a.numel())
+    return out
+
+
 def _bern(t):
     s = 1.0 - t
     return s * s * s, 3.0 * t * s * s, 3.0 * t * t * s, t * t * t
 
 
 def _dbern(t):
+    """dB/dt.  (6 t) s is shared by the two middle terms and (3 t) t by the
+    third and the last, so XLA's CPU code contracts only the second term's
+    (3 s) s; the third rounds both products."""
     s = 1.0 - t
-    return (-3.0 * s * s, 3.0 * s * s - 6.0 * t * s,
-            6.0 * t * s - 3.0 * t * t, 3.0 * t * t)
+    ts6 = 6.0 * t * s
+    tt3 = 3.0 * t * t
+    return (-3.0 * s * s, fma32(3.0 * s, s, -ts6), ts6 - tt3, tt3)
+
+
+def _dot(pairs):
+    """a0 b0 + a1 b1 + ... from the left with each product contracted into
+    the add that takes it, as XLA's CPU code sums them: the first product
+    into the first add, fma(a0, b0, a1 b1), then fma(ak, bk, sum)."""
+    (a0, b0), (a1, b1) = pairs[:2]
+    acc = fma32(a0, b0, a1 * b1)
+    for a, b in pairs[2:]:
+        acc = fma32(a, b, acc)
+    return acc
+
+
+def _dot3(x, y):
+    """x . y of (..., 3) vectors in ``_dot``'s order and contraction."""
+    return _dot([(x[..., 0], y[..., 0]), (x[..., 1], y[..., 1]), (x[..., 2], y[..., 2])])
+
+
+#: x cross y component by component: (y_1 z_2 - y_2 z_1, ...).
+_NEXT, _LAST = [1, 2, 0], [2, 0, 1]
+
+
+def _cross(x, y):
+    """x cross y of (..., 3) vectors, each component a b - c d contracted
+    as XLA's CPU code does: fma(a, b, -(c d))."""
+    return fma32(x[..., _NEXT], y[..., _LAST], -(x[..., _LAST] * y[..., _NEXT]))
 
 
 def _patch_eval(g, u, v, want_derivs: bool):
-    """S (and Su, Sv) for per-lane control points ``g`` (L, 16, 3) at
-    (R, L) parameters, summed in the kernel's order."""
-    bu, bv = _bern(u), _bern(v)
-    if want_derivs:
-        du, dv = _dbern(u), _dbern(v)
-    s, su, sv = [None] * 3, [None] * 3, [None] * 3
-    for c in range(3):
-        acc = accu = accv = 0.0
-        for i in range(4):
-            rowu = rowdu = 0.0
-            for k in range(4):
-                gik = g[:, i * 4 + k, c]
-                rowu = rowu + bu[k] * gik
-                if want_derivs:
-                    rowdu = rowdu + du[k] * gik
-            acc = acc + bv[i] * rowu
-            if want_derivs:
-                accu = accu + bv[i] * rowdu
-                accv = accv + dv[i] * rowu
-        s[c], su[c], sv[c] = acc, accu, accv
-    return s, su, sv
+    """S (and Su, Sv), each (R, L, 3), for per-lane control points ``g``
+    (L, 16, 3) at (R, L) parameters, summed in the kernel's order: per
+    coordinate the rows sum_k B_k(u) g_ik, then sum_i B_i(v) row_i."""
+    g4 = g.reshape(-1, 4, 4, 3)                           # (L, i, k, c)
+
+    def rows(b):                                          # (R, L, i, c)
+        return _dot([(b[k][..., None, None], g4[:, :, k, :]) for k in range(4)])
+
+    def cols(b, rows_):                                   # (R, L, c)
+        return _dot([(b[i][..., None], rows_[..., i, :]) for i in range(4)])
+
+    bv = _bern(v)
+    rowu = rows(_bern(u))
+    if not want_derivs:
+        return cols(bv, rowu), None, None
+    return cols(bv, rowu), cols(bv, rows(_dbern(u))), cols(_dbern(v), rowu)
 
 
 def box_open(org: torch.Tensor, dir: torch.Tensor, lo: torch.Tensor,
@@ -151,46 +218,33 @@ def solve_plain(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
     g = torch.cat([ctrl, pad])[patch].reshape(n_lanes, 16, 3)
     uv0 = torch.as_tensor(uv0_table(restarts), device=dev)[lane % restarts]
 
-    ox, oy, oz = org[:, 0:1], org[:, 1:2], org[:, 2:3]
-    dx, dy, dz = dir[:, 0:1], dir[:, 1:2], dir[:, 2:3]
+    o, d = org[:, None, :], dir[:, None, :]               # (R, 1, 3)
     box_ok = box_open(org, dir, g.amin(1), g.amax(1)) & valid
 
     u = uv0[:, 0].expand(R, n_lanes)
     v = uv0[:, 1].expand(R, n_lanes)
     s0, _, _ = _patch_eval(g, u, v, False)
-    t = (s0[0] - ox) * dx + (s0[1] - oy) * dy + (s0[2] - oz) * dz
+    t = _dot3(s0 - o, d)
     best_t = torch.full_like(t, BIG)
     best_u = torch.zeros_like(t)
     best_v = torch.zeros_like(t)
     for _ in range(iters):
         s, su, sv = _patch_eval(g, u, v, True)
-        rx = ox + t * dx - s[0]
-        ry = oy + t * dy - s[1]
-        rz = oz + t * dz - s[2]
-        cx = su[1] * sv[2] - su[2] * sv[1]
-        cy = su[2] * sv[0] - su[0] * sv[2]
-        cz = su[0] * sv[1] - su[1] * sv[0]
-        det = dx * cx + dy * cy + dz * cz
+        r = fma32(t[..., None], d, o) - s
+        c = _cross(su, sv)
+        det = _dot3(d, c)
         ok = torch.abs(det) > 1e-12
         inv_det = 1.0 / torch.where(ok, det, 1.0)
-        dt = -(rx * cx + ry * cy + rz * cz) * inv_det
-        ex = ry * sv[2] - rz * sv[1]
-        ey = rz * sv[0] - rx * sv[2]
-        ez = rx * sv[1] - ry * sv[0]
-        du = (dx * ex + dy * ey + dz * ez) * inv_det
-        fx = su[1] * rz - su[2] * ry
-        fy = su[2] * rx - su[0] * rz
-        fz = su[0] * ry - su[1] * rx
-        dv = (dx * fx + dy * fy + dz * fz) * inv_det
+        dt = -_dot3(r, c) * inv_det
+        du = _dot3(d, _cross(r, sv)) * inv_det
+        dv = _dot3(d, _cross(su, r)) * inv_det
         okf = ok.to(t.dtype)
         t = torch.clamp(t + torch.clamp(dt, -1e4, 1e4) * okf, -1e4, 1e4)
         u = torch.clamp(u + torch.clamp(du, -8.0, 8.0) * okf, -8.0, 8.0)
         v = torch.clamp(v + torch.clamp(dv, -8.0, 8.0) * okf, -8.0, 8.0)
         s2, _, _ = _patch_eval(g, u, v, False)
-        ax = ox + t * dx - s2[0]
-        ay = oy + t * dy - s2[1]
-        az = oz + t * dz - s2[2]
-        res2 = ax * ax + ay * ay + az * az
+        a = fma32(t[..., None], d, o) - s2
+        res2 = _dot3(a, a)
         accept = ((res2 < residual2_eps) & (u >= 0.0) & (u <= 1.0)
                   & (v >= 0.0) & (v <= 1.0) & (t > M_EPS) & (t < best_t)
                   & box_ok)

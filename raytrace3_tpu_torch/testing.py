@@ -66,7 +66,9 @@ stores nothing unknown (NaN); it is then not compared.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import inspect
+import pathlib
 from dataclasses import dataclass, field
 
 import torch
@@ -426,3 +428,14 @@ def recording_segments():
 
     with _patched({w: recorder(w) for w in steps}):
         yield steps
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` of the checkout as a module: the scripts are
+    files, not a package, and ``chip_smoke.py`` and the tests call their
+    cores (the port's tooling and the JAX scripts they follow)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -93,6 +93,40 @@ def test_newton_kernel_exact_at_every_restart_count(cuda_device, restarts, n_ray
     assert n_rays == 1 or int(want[4].sum()) > n_rays // 4
 
 
+def test_fma32_equals_the_cards_fused_multiply_add(cuda_device):
+    """The twin's ``fma32`` (on the CPU) equals ``__fmaf_rn`` on the card
+    (``fma32_card``) bit for bit, on random triples and on triples whose
+    float64 sum lands on a float32 midpoint: the Newton kernel contracts
+    at the places the twin calls ``fma32``."""
+    rng = np.random.default_rng(9)
+    n = 1 << 16
+    a = rng.standard_normal(n).astype(np.float32)
+    b = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 6, n)).astype(np.float32)
+    c = rng.standard_normal(n).astype(np.float32)
+    a[: n // 2] = rng.uniform(1.0, 2.0, n // 2)
+    b[: n // 2] = (2.0 ** -24 / a[: n // 2].astype(np.float64)).astype(np.float32)
+    c[: n // 2] = rng.uniform(1.0, 2.0, n // 2)
+    twin = newton_kernel.fma32(*(torch.as_tensor(x) for x in (a, b, c)))
+    card = newton_kernel.fma32_card(*(torch.as_tensor(x, device=cuda_device)
+                                      for x in (a, b, c)))
+    torch.testing.assert_close(card.cpu(), twin, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("restarts", [4, 8, 16, 32, 64])
+def test_newton_kernel_exact_on_the_restart_study_rays(cuda_device, restarts):
+    """The restart study's three populations (scripts/torch_newton_restart_
+    study.py), every 256th ray, at the restart counts the study runs."""
+    from raytrace3_tpu_torch.testing import load_script
+
+    study = load_script("torch_newton_restart_study")
+    ctrl = study.study_ctrl(cuda_device)
+    for name, (o, d) in study.populations(ctrl).items():
+        org, dir = (torch.as_tensor(np.ascontiguousarray(a[::256]), device=cuda_device)
+                    for a in (o, d))
+        want = _assert_newton_exact(org, dir, ctrl, restarts)
+        assert name == "eye" or int(want[4].sum()) > 100, name
+
+
 @pytest.mark.parametrize("n_patches", [1, MAX_PATCHES])
 def test_newton_kernel_exact_at_the_patch_limits(cuda_device, n_patches):
     """One patch, and the most the kernel takes (eight shifted copies of the

@@ -3,10 +3,13 @@ way tests/test_pallas.py runs it).  The CUDA kernel is held against the
 plain twin on the card in tests/test_torch_cuda.py.
 
 Both sides implement one contract with the same operation order, so the
-hit decisions and patch ids agree exactly.  The floats are not bit-equal:
-XLA fuses the Newton step's multiply-adds, PyTorch on the CPU rounds each
-product, and ten steps carry the difference on.  Roots t agree to 2e-6
-relative (~16 ulp; seen: 4.6e-7 at t ~ 115) and u, v to 2e-5 (seen: 3.8e-6).
+hit decisions and patch ids agree exactly.  XLA's CPU code contracts each
+multiply into the add that consumes it, and the twin rounds those
+multiply-adds once as it does (``fma32``), so most roots are bit-equal; a
+few are not, because which products XLA may contract depends on how it
+fused the program it compiled, and ten steps carry a last-bit difference
+on.  Roots t agree to 2e-6 relative (~16 ulp; seen: 4.6e-7 at t ~ 115)
+and u, v to 2e-5 (seen: 3.8e-6).
 """
 
 import jax.numpy as jnp
@@ -212,13 +215,42 @@ def test_open_pairs_is_the_twins_gate():
     assert not bool((hit & ~gate.any(1)).any())
 
 
+def test_fma32_rounds_once_as_xla_contracts():
+    """``fma32`` equals XLA's CPU code for ``a * b + c`` (contracted into one
+    fused multiply-add) bit for bit, on random triples and on triples whose
+    float64 sum lands on a float32 midpoint that the exact sum is not on,
+    where rounding the float64 sum again would go the wrong way."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    n = 1 << 15
+    a = rng.standard_normal(n).astype(np.float32)
+    b = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 6, n)).astype(np.float32)
+    c = rng.standard_normal(n).astype(np.float32)
+    # a b within float64's rounding of 2^-24 and c in [1, 2): p + c lies a
+    # hair off the midpoint c + 2^-24 and the float64 sum lands on it
+    a_mid = rng.uniform(1.0, 2.0, n).astype(np.float32)
+    b_mid = (2.0 ** -24 / a_mid.astype(np.float64)).astype(np.float32)
+    c_mid = rng.uniform(1.0, 2.0, n).astype(np.float32)
+    a2, b2, c = (np.concatenate(x) for x in ((a, a_mid), (b, b_mid), (c, c_mid)))
+    s64 = a2.astype(np.float64) * b2 + c
+    r32 = s64.astype(np.float32).astype(np.float64)
+    halfway = np.abs(s64 - r32) == np.spacing(np.float32(r32)).astype(np.float64) / 2
+    assert halfway[n:].sum() > 100                    # the hard cases occur
+    want = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a2, b2, c))
+    got = newton_kernel.fma32(_t(a2), _t(b2), _t(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+    naive = s64.astype(np.float32)
+    assert (naive != want).sum() > 0                   # one float64 sum would not do
+
+
 def test_edge_ray_agrees_to_the_solves_acceptance():
     """ROADMAP section 3, F2: pixel 51 of ``full`` at 16 x 16 meets patch 3
     at u = 0.999, where the Newton iterate is only good to the acceptance
-    radius sqrt(M_EPS).  The port's root and JAX's share the hit, the patch
-    and t to 2e-5 relative; their v (and so the normal) differ, which
-    ``tests/test_torch_eye.py::test_k_slot_eye_pass_newton_at_16_matches_jax``
-    holds against NORMAL_ATOL while F2 is open."""
+    radius sqrt(M_EPS).  The port's root and JAX's share the hit, the patch,
+    t to 2e-5 relative and u, v to 2e-5: the twin rounds the iterate as
+    XLA's CPU code does, so it rejects the short iterate of step 10 that it
+    took while it rounded every product (t 121.956741, v 0.25201011)."""
     from raytrace3_tpu import scenes as jscenes
     from raytrace3_tpu.render.camera import emit_rays as j_emit_rays
 
@@ -232,3 +264,5 @@ def test_edge_ray_agrees_to_the_solves_acceptance():
     assert bool(want[4][0]) and bool(got[4][0]) and int(got[3][0]) == int(want[3][0]) == 3
     assert abs(float(got[0][0]) - float(want[0][0])) <= 2e-5 * float(want[0][0])
     assert float(want[1][0]) > 0.999
+    for k in (1, 2):
+        assert abs(float(got[k][0]) - float(want[k][0])) <= 2e-5

@@ -10,7 +10,11 @@ JAX package's, on a small ``full`` configuration.
   to JAX's one segment at a time (``raytrace3_tpu_torch.testing``).  The
   holding hands on JAX's values pinned to the port's own autograd graph
   (``testing.pin``: ``ref + (x - x.detach())``), so the port's gradients
-  are its own, taken along JAX's path.
+  are its own, taken along JAX's path.  JAX's gradients are taken from
+  two compilations, XLA's default (multiply-adds contracted) and one with
+  fusion off (every product rounded on its own); each of the port's
+  elements is held to the interval the two span, since JAX's own value is
+  undetermined there by its rounding.
 * A finite-difference check on one albedo (tests/test_diff.py:117-124).
 * Five train steps reduce the loss to a target rendered at the true
   albedos (tests/test_diff.py:193-213), with no dropped deposit.
@@ -62,8 +66,21 @@ SEGS = 14
 #: port's gradients are taken at its own values along JAX's path; where
 #: those differ within their classes' tolerances (far-field hits 1e-3,
 #: self-hits 1e-2 of a position; testing.py), the derivatives follow.
-#: Seen: diff 3.3e-8, atlas 6.8e-4, ctrl 9.6e-4.
+#: JAX's own gradient is not one number everywhere: XLA's CPU code contracts
+#: each multiply into the add that consumes it, and which it contracts
+#: depends on how it fused the program.  Compiled with fusion off (every
+#: product rounded on its own) a few elements move by more than this bound
+#: (atlas 4.5e-3, ctrl 1.49e-3 of the largest); ctrl [26, 0, 2, 2], two
+#: lanes driven by the flat teapot texture's bilinear-backward rounding,
+#: reads -8.92e-8 fused and exactly 0 unfused.  So each element is held to
+#: the interval between JAX's two compilations, widened by this bound.
 SLICE_GRAD_ATOL = 2e-3
+#: The most elements a parameter may have whose interval between JAX's two
+#: compilations is itself wider than the bound (seen: atlas 2, ctrl 3), so
+#: that the interval rule cannot widen unseen.
+MAX_WIDE = 4
+#: XLA's option that keeps every product rounded on its own.
+UNFUSED = {"xla_disable_hlo_passes": "fusion"}
 
 
 
@@ -90,10 +107,19 @@ def _jax_slice(key, target):
         img, drops = render(p, key)
         return jnp.mean((img - jnp.asarray(target).reshape(-1, 3)) ** 2), (img, drops)
 
+    vg = jax.value_and_grad(loss, has_aux=True)
     with jax_walk_steps() as steps:
-        (val, (img, drops)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+        (val, (img, drops)), grads = jax.jit(vg)(params)
         jax.block_until_ready(grads)
-    return params, float(val), np.asarray(img), int(drops), grads, steps
+        unfused = jax.jit(vg).lower(params).compile(compiler_options=UNFUSED)
+        (val_u, _), grads_u = unfused(params)
+        jax.block_until_ready(grads_u)
+    # both compilations ran under the recorder; the walks held are the first's
+    for walk, recorded in steps.items():
+        assert len(recorded) % 2 == 0, walk
+        steps[walk] = recorded[:len(recorded) // 2]
+    return (params, float(val), np.asarray(img), int(drops), grads, steps,
+            float(val_u), grads_u)
 
 
 def _port_render(cfg, deposit=True):
@@ -108,11 +134,17 @@ def _port_render(cfg, deposit=True):
 def test_slice_loss_and_gradients_match_jax():
     """The port's ``make_render_fn`` loss and its gradients w.r.t. ``diff``,
     ``atlas`` and ``ctrl`` against ``jax.value_and_grad`` of JAX's, both
-    walks held to JAX's segment by segment with the graph kept."""
+    walks held to JAX's segment by segment with the graph kept.  JAX's
+    gradient is compiled twice, as XLA's CPU code contracts multiply-adds
+    (the default) and with every product rounded on its own (fusion off);
+    each element of the port's lies within ``SLICE_GRAD_ATOL`` times the
+    parameter's largest gradient of the interval the two span."""
     cfg = RenderConfig(**SMALL)
     key = jax.random.key(KEY)
     target = _target(cfg)
-    j_params, j_val, j_img, j_drops, j_grads, steps = _jax_slice(key, target)
+    (j_params, j_val, j_img, j_drops, j_grads, steps,
+     j_val_unfused, j_grads_unfused) = _jax_slice(key, target)
+    assert j_val_unfused == j_val
     assert len(steps["eye"]) == SEGS and len(steps["static"]) == cfg.rounds * SEGS
 
     scene, dep = _port_render(cfg)
@@ -129,19 +161,29 @@ def test_slice_loss_and_gradients_match_jax():
     assert draws.remaining == 0
     assert report.segments == {"eye": SEGS, "photon": 0, "static": cfg.rounds * SEGS}
     assert report.lanes["self-hit flip"] <= MAX_FLIPS
-    assert int(drops) == j_drops == 0
+    assert int(drops["deposits_dropped"]) == j_drops == 0
     img = img.detach().numpy()
     l1 = np.abs(img - j_img).sum() / np.abs(j_img).sum()
     print(f"loss {float(loss.detach())} vs {j_val}, image relative L1 {l1:.3g}")
     assert l1 <= 1e-5
     np.testing.assert_allclose(float(loss.detach()), j_val, rtol=1e-5)
     for k in ("diff", "atlas", "ctrl"):
-        g, w = params[k].grad.numpy(), np.asarray(j_grads[k])
-        err = np.abs(g - w).max() / np.abs(w).max()
-        print(f"{k}: max |grad| {np.abs(w).max():.3g} port {np.abs(g).max():.3g}, max |d grad| / max |grad| {err:.3g}")
-        assert np.abs(w).max() > 0, k
-        np.testing.assert_allclose(g, w, rtol=0, atol=SLICE_GRAD_ATOL * np.abs(w).max(),
-                                   err_msg=k)
+        g, w, u = params[k].grad.numpy(), np.asarray(j_grads[k]), np.asarray(j_grads_unfused[k])
+        scale = np.abs(w).max()
+        assert scale > 0, k
+        lo, hi = np.minimum(w, u), np.maximum(w, u)
+        outside = np.maximum(np.maximum(lo - g, g - hi), 0) / scale
+        wide = np.argwhere(hi - lo > SLICE_GRAD_ATOL * scale)
+        print(f"{k}: max |grad| {scale:.3g} port {np.abs(g).max():.3g}, "
+              f"max |d grad| / max |grad| {np.abs(g - w).max() / scale:.3g}, "
+              f"outside JAX's interval {outside.max():.3g}, wide intervals {len(wide)}")
+        for i in (tuple(int(x) for x in j) for j in wide):
+            print(f"  {k}{list(i)}: port {g[i]:.4g} JAX fused {w[i]:.4g} unfused {u[i]:.4g}")
+        if k == "ctrl":
+            i = (26, 0, 2, 2)
+            print(f"  ctrl{list(i)}: port {g[i]:.4g} JAX fused {w[i]:.4g} unfused {u[i]:.4g}")
+        assert len(wide) <= MAX_WIDE, (k, wide)
+        assert outside.max() <= SLICE_GRAD_ATOL, (k, np.unravel_index(outside.argmax(), g.shape))
 
 
 def test_albedo_gradient_matches_finite_difference():
