@@ -102,8 +102,9 @@ with a non-zero exit when it fails:
      the train step the lane deposit and its transpose on the first round's
      inputs (the gathered hit points, the rank's deposits, the cotangent
      the loss gave);
- 18. the port's dry run (``parallel/dryrun.py``) on 4 ranks, a 2 x 2 mesh,
-     as phase 17 runs its ranks;
+ 18. the port's dry run (``parallel/dryrun.py``) on 8 ranks, the 2 x 4
+     mesh of MULTICHIP_r05.json, as phase 17 runs its ranks (gloo, one
+     card); every rank agrees and kernels #1-#4 are launched;
  19. the Newton kernel against its plain twin, bit for bit, at 4, 16, 32
      and 64 restarts (the path runs 8) on the restart study's three ray
      populations (``scripts/torch_newton_restart_study.py``) cut to 16,384
@@ -116,7 +117,13 @@ with a non-zero exit when it fails:
      inputs as phase 17 holds them;
  21. ten steps of the albedo recovery at 128^2
      (``scripts/torch_inverse_render.py``): the loss falls, both drop
-     counters are 0, s/step printed.
+     counters are 0, s/step printed;
+ 22. the host-side micro-benchmarks cut (``scripts/torch_perf_dispatch_
+     micro.py`` on the bench's pass at 4 rounds, n = 2, with its launches
+     and syncs a pass; ``torch_perf_compact_micro.py`` and
+     ``torch_perf_depprep_micro.py`` at their full shapes): every
+     candidate's output equal to the others', the port's deposit prep to
+     its row-gather twin.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -242,6 +249,8 @@ GLOO_PASSES = 2
 GLOO_TRAIN_STEPS = 2
 #: Seconds a spawned phase may run before its ranks are terminated.
 SPAWN_TIMEOUT = 600
+#: Phase 18: the dry run's ranks, MULTICHIP_r05.json's 2 x 4 mesh.
+DRYRUN_RANKS = 8
 #: Phase 19: the restart study's populations (scripts/torch_newton_restart_
 #: study.py, JAX's draws) cut to every 16th ray, 16,384 rays each, and every
 #: restart count the study solves them at (its candidates and its oracle);
@@ -256,6 +265,13 @@ STUDY_CHUNK = 4096
 GRADCHECK_SEED = 0
 #: Phase 21: steps of the albedo recovery at 128^2.
 INVERSE_STEPS = 10
+#: Phase 22: the host-side micro-benchmarks cut: the dispatch tool on the
+#: bench's pass at TOOLS_ROUNDS rounds, TOOLS_ISSUE passes issued and one
+#: wall reading at n = TOOLS_ISSUE; the compaction and prep tools at their
+#: full shapes with TOOLS_REPS timed calls a candidate.
+TOOLS_ROUNDS = 4
+TOOLS_ISSUE = 2
+TOOLS_REPS = 5
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -1610,19 +1626,21 @@ def phase_sharded_gloo(card: str) -> dict:
 
 
 def phase_dryrun(card: str) -> dict:
-    """Phase 18: ``parallel/dryrun.py`` on 4 ranks (a 2 x 2 mesh), on the
-    card as phase 17 runs its ranks (gloo, host-staged; NCCL with 4 cards)."""
+    """Phase 18: ``parallel/dryrun.py`` on DRYRUN_RANKS ranks (a 2 x 4
+    mesh, MULTICHIP_r05.json's), on the card as phase 17 runs its ranks
+    (gloo, host-staged; NCCL with a card a rank)."""
     from raytrace3_tpu_torch.parallel.launch import spawn
 
-    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    backend = "nccl" if torch.cuda.device_count() >= DRYRUN_RANKS else "gloo"
     t0 = time.perf_counter()
-    outs = spawn(dryrun_rank, 4, backend=backend, timeout=SPAWN_TIMEOUT)
+    outs = spawn(dryrun_rank, DRYRUN_RANKS, backend=backend, timeout=SPAWN_TIMEOUT)
     launches = sum_launches(outs)
     o = outs[0]
-    print(f"[18] dryrun over {backend}: mesh {o['mesh']}, forward {o['forward']}, train "
-          f"{o['train']}, loss {o['loss']:.6g}, max |grad| {o['grad_max']}; launches "
-          f"{launches}; {time.perf_counter() - t0:.1f} s ({card})")
-    ok = (all(x["loss"] == o["loss"] and x["grad_max"] == o["grad_max"] for x in outs)
+    print(f"[18] dryrun on {DRYRUN_RANKS} ranks over {backend}: mesh {o['mesh']}, forward "
+          f"{o['forward']}, train {o['train']}, loss {o['loss']:.6g}, max |grad| "
+          f"{o['grad_max']}; launches {launches}; {time.perf_counter() - t0:.1f} s ({card})")
+    ok = (o["mesh"] == {"pass": 2, "photon": DRYRUN_RANKS // 2}
+          and all(x["loss"] == o["loss"] and x["grad_max"] == o["grad_max"] for x in outs)
           and all(launches[k] > 0 for k in ("newton", "deposit_tile", "deposit_lane",
                                             "deposit_lane_bwd")))
     if not ok:
@@ -1786,6 +1804,52 @@ def phase_inverse(card: str, device) -> dict:
     return launches
 
 
+def phase_tools(card: str, device) -> dict:
+    """Phase 22: the three host-side micro-benchmarks
+    (``scripts/torch_perf_{dispatch,compact,depprep}_micro.py``) cut: the
+    dispatch tool with its launch and sync counts, the kernels' counters
+    read around it; the compaction and prep tools, every candidate's output
+    held to the others' and the port's prep to its row-gather twin."""
+    from raytrace3_tpu_torch.testing import load_script
+
+    dispatch = load_script("torch_perf_dispatch_micro")
+    compact = load_script("torch_perf_compact_micro")
+    depprep = load_script("torch_perf_depprep_micro")
+    t0 = time.perf_counter()
+    zero_counters()
+    torch.cuda.synchronize()
+    d = dispatch.measure(dict(BENCH, rounds=TOOLS_ROUNDS), device, (TOOLS_ISSUE,), TOOLS_ISSUE)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    issue = sum(d["pass_issue_s"]) / len(d["pass_issue_s"])
+    print(f"[22] dispatch ({TOOLS_ROUNDS} rounds): issue {issue:.3f} s a pass, drain "
+          f"{d[f'drain_{TOOLS_ISSUE}_passes_s']:.3f} s, wall "
+          f"{d[f'wall_per_pass_n{TOOLS_ISSUE}_s']:.3f} s a pass; {d['launches_per_pass']} "
+          f"device events a pass, {d['host_us_per_launch']:.2f} host us each; "
+          f"{d['syncs_per_pass']} syncs a pass at {len(d['sync_lines'])} lines; .item() "
+          f"{d['item_scalar_s']}; launches {launches} ({card})")
+    try:
+        c = compact.measure(compact.DEFAULTS["n"], compact.DEFAULTS["cap"],
+                            compact.DEFAULTS["d"], TOOLS_REPS, device)
+        p = depprep.measure(depprep.DEFAULTS["d"], depprep.DEFAULTS["res"],
+                            depprep.DEFAULTS["photons"], TOOLS_REPS, device)
+    except AssertionError as e:
+        raise SystemExit(f"phase 22 failed: {e}") from None
+    ms = lambda r: f"{r['device_ms']:.4f}/{r['wall_ms']:.4f}"
+    print("[22] compaction (device/wall ms, syncs): " + ", ".join(
+        f"{k} {ms(r)} {r['syncs']}" for k, r in {**c["compaction"], **c["key_sort"]}.items())
+        + f"; outputs identical ({card})")
+    print("[22] deposit prep (device/wall ms): " + ", ".join(
+        f"{k} {ms(r)}" for k, r in p["candidates"].items() if r["wall_ms"] is not None)
+        + f"; the port's prep equals its twin ({card})")
+    print(f"[22] {time.perf_counter() - t0:.1f} s")
+    if not (d["launches_per_pass"] and d["syncs_per_pass"] is not None
+            and launches["newton"] > 0 and launches["deposit_tile"] > 0
+            and not any(d["drops_first_pass"].values())):
+        raise SystemExit("phase 22 failed: the dispatch tool's pass missed a count or dropped")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -1824,15 +1888,18 @@ def main() -> int:
     gradcheck = phase_gradcheck(card, device)
     inverse = phase_inverse(card, device)
     print(f"[19-21] {time.perf_counter() - t0:.1f} s ({card})")
+    tools = phase_tools(card, device)
     # Each kernel's launches on each path, each path counted from 0: the
     # render pass (phase 5), the train step (phase 9), the CLI at
     # reference1024 (phase 11), the stream deposit's pass (phase 12), the
     # sharded render (phase 16), the two-rank runs on one card (phase 17),
     # the dry run (phase 18), summed over their ranks, the restart study
-    # (phase 19), the grad check (phase 20) and the albedo recovery (phase 21).
+    # (phase 19), the grad check (phase 20), the albedo recovery (phase 21)
+    # and the dispatch tool's passes (phase 22).
     paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches,
              "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun,
-             "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse}
+             "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse,
+             "tools": tools}
     rows = (newton, deposit, lane, lane_bwd, block, stream)
     for row in rows:
         name = row["name"]

@@ -475,6 +475,19 @@ class DepositTile:
         return HpLayout(packed=packed, g=g, lo_keys=lo_keys, hi_keys=hi_keys)
 
     # -- per round ---------------------------------------------------------
+    def _dep_rows(self, dep: Deposits):
+        """(sort key (D,) int32, rows (D, 9)) of the round's deposits: the
+        band key (the sentinel for invalid ones) and pos xyz (FAR for
+        invalid), n xyz, flux rgb (0 for invalid)."""
+        dkey = torch.where(
+            dep.valid,
+            self._bid(dep.pos) * self.y_stride + self._yq(dep.pos[:, self.ay]),
+            self._sentinel_key()).to(torch.int32)
+        okc = dep.valid[:, None]
+        rows = torch.cat([torch.where(okc, dep.pos, FAR), dep.n,
+                          torch.where(okc, dep.flux, 0.0)], 1)
+        return dkey, rows
+
     def _dep_sorted(self, dep: Deposits, granularity: int,
                     with_order: bool = False):
         """Sort and pack the round's deposits: (dkeys, dep_packed, Dp), and
@@ -486,13 +499,7 @@ class DepositTile:
         """
         D = dep.pos.shape[0]
         Dp = ((D + granularity - 1) // granularity) * granularity
-        dkey = torch.where(
-            dep.valid,
-            self._bid(dep.pos) * self.y_stride + self._yq(dep.pos[:, self.ay]),
-            self._sentinel_key()).to(torch.int32)
-        okc = dep.valid[:, None]
-        rows = torch.cat([torch.where(okc, dep.pos, FAR), dep.n,
-                          torch.where(okc, dep.flux, 0.0)], 1)      # (D, 9)
+        dkey, rows = self._dep_rows(dep)
         dkeys, order = torch.sort(dkey, stable=True)
         dep_packed = torch.zeros((16, Dp), dtype=torch.float32,
                                  device=dep.pos.device)

@@ -130,6 +130,22 @@ class Mesh:
         dist.all_gather(parts, h, group=self.groups[axis])
         return self._back(torch.cat(parts), x)
 
+    def reduce_scatter(self, x: torch.Tensor, axis: str = PHOTON_AXIS) -> torch.Tensor:
+        """This rank's part of the sum of ``x`` over the ranks along
+        ``axis``: dim 0 cut into as many equal parts as the axis has ranks,
+        part i summed onto rank i (JAX's ``psum_scatter(tiled=True)``, the
+        transpose of :meth:`all_gather`).  Raises ``ValueError`` when the
+        ranks do not divide dim 0."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not cut into {n} parts")
+        h = self._host(x).contiguous()
+        out = h.new_empty((x.shape[0] // n, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, h, group=self.groups[axis])
+        return self._back(out, x)
+
     def shift(self, x: torch.Tensor, axis: str = PHOTON_AXIS) -> torch.Tensor:
         """``x`` of the previous rank along ``axis``, this rank's ``x`` going
         to the next: JAX's ``ppermute`` by ``(i, i + 1 mod n)``."""
@@ -153,8 +169,8 @@ class Mesh:
 
     def all_gather_grad(self, x: torch.Tensor, axis: str = PHOTON_AXIS) -> torch.Tensor:
         """:meth:`all_gather` that autograd traces; its backward hands each
-        rank the sum over the axis of the gradient of its own part (JAX's
-        transpose, ``psum_scatter``)."""
+        rank the sum over the axis of the gradient of its own part by
+        :meth:`reduce_scatter` (JAX's transpose, ``psum_scatter``)."""
         return _AllGather.apply(x, self, axis)
 
 
@@ -172,13 +188,12 @@ class _AllReduce(torch.autograd.Function):
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
+        ctx.mesh, ctx.axis = mesh, axis
         return mesh.all_gather(x, axis).clone()
 
     @staticmethod
     def backward(ctx, g):
-        i, n = ctx.mesh.index(ctx.axis), ctx.rows
-        return ctx.mesh.all_reduce(g, ctx.axis)[i * n:(i + 1) * n], None, None
+        return ctx.mesh.reduce_scatter(g, ctx.axis), None, None
 
 
 def mesh_shape(n_pass: int | None, n_photon: int | None, world: int) -> tuple[int, int]:

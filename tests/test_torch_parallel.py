@@ -140,6 +140,7 @@ def test_mesh_shapes():
     assert m.shape == {PASS_AXIS: 1, PHOTON_AXIS: 1}
     x = torch.arange(6.0).reshape(3, 2)
     assert m.all_reduce(x) is x and m.all_gather(x) is x and m.shift(x) is x
+    assert m.reduce_scatter(x) is x
     assert default_backend("cpu") == "gloo"       # a card's rank defaults to NCCL
 
 
@@ -173,6 +174,58 @@ def test_collectives_on_a_2x2_mesh():
         # the pass group's (rank + 1) times the pass sum
         want = (r + 1) + (partner + 1) + 10 * ((fi + 1) + (fi + 3))
         assert grad == float(want), (r, grad, want)
+
+
+def _reduce_scatter_rank(rows):
+    """This rank's gather gradient three ways: the all-reduce and slice the
+    gather's backward took before, the backward itself (with the calls it
+    made to each collective counted), and ``Mesh.reduce_scatter``."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(1, device="cpu")
+    n, i = mesh.size(PHOTON_AXIS), mesh.photon_index
+    gen = torch.Generator().manual_seed(100 + mesh.rank)
+    g = torch.rand((n * rows, 3), generator=gen) + 0.5
+    g = g * 10.0 ** torch.randint(-3, 4, (n * rows, 1), generator=gen)
+    old = mesh.all_reduce(g)[i * rows:(i + 1) * rows]
+    x = torch.zeros((rows, 3), requires_grad=True)
+    gathered = mesh.all_gather_grad(x)
+    calls = {"all_reduce": 0, "reduce_scatter_tensor": 0}
+    real = {k: getattr(dist, k) for k in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    for k in calls:
+        setattr(dist, k, counted(k))
+    try:
+        gathered.backward(g)
+    finally:
+        for k, f in real.items():
+            setattr(dist, k, f)
+    return old.numpy(), x.grad.numpy(), mesh.reduce_scatter(g).numpy(), calls
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_gather_backward_is_a_reduce_scatter(ranks):
+    """The tiled gather's backward is one reduce-scatter over the axis
+    (JAX's ``psum_scatter``), no all-reduce, and each rank receives what
+    the all-reduce of the whole gathered gradient, sliced to its rows, gave
+    it: bit for bit on 2 ranks (a sum of two is one rounding either way),
+    within 1e-6 relative on 4 (the backend may add four in another order;
+    the gradients are positive, so no sum cancels)."""
+    outs = spawn(_reduce_scatter_rank, ranks, (5,), backend="gloo", timeout=TIMEOUT)
+    for old, new, direct, calls in outs:
+        assert calls == {"all_reduce": 0, "reduce_scatter_tensor": 1}, calls
+        assert new.shape == (5, 3)
+        np.testing.assert_array_equal(new, direct)
+        if ranks == 2:
+            np.testing.assert_array_equal(new, old)
+        else:
+            np.testing.assert_allclose(new, old, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("n_pass", [1, 2], ids=["1x2", "2x2"])

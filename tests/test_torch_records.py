@@ -74,3 +74,46 @@ def test_albedo_record_recovers_the_parameters():
     assert rec["steps"] == 300 and rec["res"] == 128
     assert rec["final_param_err_identifiable"] < 0.01 * rec["initial_param_err_identifiable"]
     assert rec["initial_param_err"] == _load("docs/INVERSE_ALBEDO.json")["initial_param_err"]
+
+
+#: The records of the host-side tools, the dry run and the four-card
+#: readings, each with the keys its script writes at its defaults.
+CARD_RECORDS = {
+    "DISPATCH_PORT.json": {"item_scalar_s", "generators_x8_s", "pass_issue_s",
+                           "drain_4_passes_s", "wall_per_pass_n2_s", "wall_per_pass_n4_s",
+                           "wall_per_pass_n8_s", "wall_per_pass_n4_generators_inside_s",
+                           "launches_per_pass", "host_us_per_launch", "syncs_per_pass",
+                           "sync_lines"},
+    "COMPACT_PORT.json": {"n", "cap", "frac", "d", "compaction", "key_sort",
+                          "outputs_identical"},
+    "DEPPREP_PORT.json": {"d", "candidates", "outputs_identical"},
+    "MULTICHIP_PORT.json": {"mesh", "ranks", "backend", "loss", "forward", "train"},
+    "SHARDED_CARDS_PORT.json": {"cards", "shapes", "supers"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_RECORDS))
+def test_host_side_record_written_on_the_card(name):
+    rec = _load(f"docs/{name}")
+    assert rec["device"] == "cuda" and rec["card"] and rec["power_limit"].endswith("W")
+    assert "reduced" in rec or name == "MULTICHIP_PORT.json"
+    assert CARD_RECORDS[name] <= set(rec), sorted(CARD_RECORDS[name] - set(rec))
+    if name == "DISPATCH_PORT.json":
+        assert rec["launches_per_pass"] > 0 and rec["host_us_per_launch"] > 0
+        assert rec["syncs_per_pass"] == sum(v["count"] for v in rec["sync_lines"].values())
+        assert len(rec["pass_issue_s"]) == 4 and rec["reduced"] == []
+    if name in ("COMPACT_PORT.json", "DEPPREP_PORT.json"):
+        assert rec["outputs_identical"] and rec["reduced"] == []
+
+
+def test_multichip_record_is_the_2x4_dry_run():
+    """``docs/MULTICHIP_PORT.json`` carries MULTICHIP_r05.json's keys and
+    is the dry run on 8 ranks, a 2 x 4 mesh, every rank agreeing, both
+    drop counters 0 in both steps."""
+    rec = _load("docs/MULTICHIP_PORT.json")
+    assert set(_load("MULTICHIP_r05.json")) <= set(rec)
+    assert rec["mesh"] == {"pass": 2, "photon": 4} and rec["ranks"] == rec["n_devices"] == 8
+    assert rec["ok"] and rec["rc"] == 0 and not rec["skipped"]
+    assert "mesh={'pass': 2, 'photon': 4}" in rec["tail"]
+    assert rec["forward"]["dropped"] == rec["forward"]["deposits_dropped"] == 0
+    assert rec["train"] == {"deposits_dropped": 0, "dropped": 0}

@@ -12,6 +12,12 @@ the JAX scripts they follow, on the CPU, on the same numpy-seeded inputs.
   within 1e-6.
 * Each script on the CPU at a small size writes a record whose keys
   include the JAX record's, with no drop, and imports no JAX.
+* The three micro-benchmarks of the host side (``torch_perf_dispatch_
+  micro``, ``torch_perf_compact_micro``, ``torch_perf_depprep_micro``):
+  the compaction candidates equal each other and JAX's ``jnp.nonzero(mask,
+  size=cap, fill_value=N)`` on the same mask, the key sorts and the row
+  gathers equal numpy's stable argsort and gather, the port's deposit prep
+  equals its row-gather twin, and each writes its keys.
 """
 
 import copy
@@ -32,6 +38,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 study = load_script("torch_newton_restart_study")
 gc = load_script("torch_gradcheck")
+compact = load_script("torch_perf_compact_micro")
+depprep = load_script("torch_perf_depprep_micro")
+
+#: The fields of scripts/perf_dispatch_micro.py's record and their port
+#: counterparts at ``--issue 4 --ns 2,4,8`` (JAX's), and the card's three.
+DISPATCH_KEYS = {"item_scalar_s", "generators_x8_s", "pass_issue_s", "drain_4_passes_s",
+                 "wall_per_pass_n2_s", "wall_per_pass_n4_s", "wall_per_pass_n8_s",
+                 "wall_per_pass_n4_generators_inside_s", "launches_per_pass",
+                 "host_us_per_launch", "syncs_per_pass", "sync_lines"}
+#: Every record's keys about where it ran (``core.device.record_fields``).
+WHERE = {"device", "card", "power_limit", "reduced", "torch"}
 
 #: Runs a script as ``__main__``, then reports on stderr whether JAX was
 #: imported (tests/test_torch_bench.py's runner).
@@ -300,11 +317,101 @@ def test_restart_study_script_on_cpu(tmp_path):
     assert imported == ["IMPORTED "], imported
 
 
+def test_compaction_candidates_equal_jax_nonzero():
+    """The three compaction candidates at a cut of the tool's shapes equal
+    ``jnp.nonzero(mask, size=cap, fill_value=N)[0]`` on the same mask (the
+    tool's seed), and both deposit-key sorts equal numpy's stable sort."""
+    import jax.numpy as jnp
+
+    N, cap, D = 8192, 410, 5000
+    res = compact.measure(N, cap, D, 2, torch.device("cpu"))
+    assert res["outputs_identical"] and set(res["compaction"]) == {"nonzero", "argsort",
+                                                                  "sortkv"}
+    mask, keys = compact.inputs(N, D, "cpu")
+    assert 300 < res["valid_lanes"] == int(mask.sum()) < cap
+    want = np.asarray(jnp.nonzero(jnp.asarray(mask.numpy()), size=cap, fill_value=N)[0])
+    for name, fn in compact.COMPACTION.items():
+        np.testing.assert_array_equal(fn(mask, cap).numpy(), want, err_msg=name)
+    few = compact.inputs(N, D, "cpu", frac=0.2)[0]       # more True lanes than the cap
+    want = np.asarray(jnp.nonzero(jnp.asarray(few.numpy()), size=cap, fill_value=N)[0])
+    for name, fn in compact.COMPACTION.items():
+        np.testing.assert_array_equal(fn(few, cap).numpy(), want, err_msg=name)
+    order = np.argsort(keys.numpy(), kind="stable")
+    for name, fn in compact.KEY_SORT.items():
+        ks, o = fn(keys)
+        np.testing.assert_array_equal(o.numpy(), order, err_msg=name)
+        np.testing.assert_array_equal(ks.numpy(), keys.numpy()[order], err_msg=name)
+
+
+def test_depprep_candidates_agree_and_refuse_a_wrong_one():
+    """Candidates a, b, c and f on JAX's inputs (cut to 4096 rows) agree,
+    a equals numpy's stable sort and row gather, and the check refuses a
+    candidate whose rows are shifted by one column."""
+    keys, cols = depprep.synthetic(4096, "cpu")
+    rng = np.random.default_rng(0)                  # JAX's script's draws, in order
+    np.testing.assert_array_equal(keys.numpy(), rng.integers(0, 1 << 20, 4096))
+    outs = {n: f(keys, cols) for n, f in depprep.CANDIDATES.items()}
+    depprep.check_candidates(outs)
+    order = np.argsort(keys.numpy(), kind="stable")
+    np.testing.assert_array_equal(outs["a_rowgather16"][1].numpy(), cols.numpy()[order])
+    bad = dict(outs, b_rowgather12=(outs["b_rowgather12"][0],
+                                    outs["a_rowgather16"][1][:, 1:13]))
+    with pytest.raises(AssertionError, match="b_rowgather12"):
+        depprep.check_candidates(bad)
+
+
+def test_depprep_port_prep_equals_its_row_gather_twin():
+    """The port's deposit prep (``DepositTile._dep_sorted``) on one regen
+    round of the bench's pass, cut to 16^2 and 512 photons, equals the
+    stable sort and row gather of its keys and rows."""
+    dep_fn, deps = depprep.bench_round(16, 512, torch.device("cpu"))
+    info = depprep.check_prep(dep_fn, deps)
+    assert info["deposits"] == 14 * 512 and 0 < info["valid"] < info["deposits"]
+    assert info["padded"] % dep_fn.chunk == 0
+
+
+def test_micro_benchmark_scripts_on_cpu(tmp_path):
+    """The three scripts at small sizes, run at once: each writes its
+    record with its keys and imports no JAX."""
+    runs = {
+        "dispatch": ("torch_perf_dispatch_micro.py", "--res", "16", "--rounds", "1",
+                     "--photons", "256", "--issue", "1", "--ns", "1"),
+        "compact": ("torch_perf_compact_micro.py", "--n", "4096", "--cap", "205", "--d",
+                    "5000", "--reps", "2"),
+        "depprep": ("torch_perf_depprep_micro.py", "--d", "4096", "--res", "16",
+                    "--photons", "256", "--reps", "2"),
+    }
+    with ThreadPoolExecutor(3) as pool:
+        done = {k: pool.submit(_run, v[0], *v[1:], "--platform", "cpu", "--out",
+                               str(tmp_path / f"{k}.json")) for k, v in runs.items()}
+    for k, fut in done.items():
+        r, imported = fut.result()
+        assert r.returncode == 0, (k, r.stdout[-3000:] + r.stderr[-3000:])
+        assert imported == ["IMPORTED "], (k, imported)
+    rec = {k: json.load(open(tmp_path / f"{k}.json")) for k in runs}
+    for r in rec.values():
+        assert WHERE <= set(r) and r["device"] == "cpu" and r["card"] is None and r["reduced"]
+    want = {k.replace("n2_", "n1_").replace("n4_gen", "n1_gen").replace("drain_4", "drain_1")
+            for k in DISPATCH_KEYS - {"wall_per_pass_n4_s", "wall_per_pass_n8_s"}}
+    assert want <= set(rec["dispatch"]), sorted(want - set(rec["dispatch"]))
+    assert len(rec["dispatch"]["pass_issue_s"]) == 1 and rec["dispatch"]["launches_per_pass"] is None
+    assert rec["dispatch"]["drops_first_pass"] == {"dropped": 0, "deposits_dropped": 0}
+    assert rec["compact"]["outputs_identical"] and set(rec["compact"]["key_sort"]) == {
+        "argsort_gather", "sort_key_val"}
+    c = rec["depprep"]["candidates"]
+    assert rec["depprep"]["outputs_identical"] and set(c) == {
+        "a_rowgather16", "b_rowgather12", "c_rowgather8", "d_varsort9", "e_varsort12",
+        "f_take_along", "g_port_prep"}
+    assert c["d_varsort9"]["no_counterpart"] and c["g_port_prep"]["wall_ms"] > 0
+
+
 def test_tool_scripts_import_no_jax():
     """Every Slice E script imports torch and the port only (loaded as a
     module in a fresh interpreter, nothing run)."""
     names = ["torch_newton_restart_study", "torch_gradcheck", "torch_inverse_render",
-             "torch_inverse_ctrl_anneal", "torch_reference1024", "torch_perf_trainstep"]
+             "torch_inverse_ctrl_anneal", "torch_reference1024", "torch_perf_trainstep",
+             "torch_perf_dispatch_micro", "torch_perf_compact_micro",
+             "torch_perf_depprep_micro", "torch_sharded_cards"]
     code = ("import runpy, sys\n"
             f"for n in {names!r}: runpy.run_path('scripts/' + n + '.py', run_name=n)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -282,7 +282,7 @@ def jitter_rays(cfg, key, base, look):
     return jitter, org, dirs, kp
 
 
-def sharded_emulation(scene, cfg, groups, n_shard: int, deposit_fn=None):
+def sharded_emulation(scene, cfg, groups, n_shard: int, deposit_fn=None, newton_fn=None):
     """JAX's photon-sharded rounds emulated on one device, as
     tests/test_parallel.py:52-116 and tests/test_ring.py:23-164 do: for
     each group ``(org, dirs, photon_keys)``, ``n_shard`` eye passes on the
@@ -290,14 +290,18 @@ def sharded_emulation(scene, cfg, groups, n_shard: int, deposit_fn=None):
     concatenated, and per round every shard's photons (``fold``ed keys,
     ``cfg.photons_per_round / n`` a light, static or regen walk) deposited
     into all of them (``deposit_fn``, default the bruteforce) and summed
-    before one PPM update.  Each walk is recorded (``jax_walk_steps``).
+    before one PPM update.  ``newton_fn``: the Bezier solve of every walk
+    (JAX's ``newton_fn``; default its ``solve_winner``).  Each walk is
+    recorded (``jax_walk_steps``).
 
     Returns, per group, the image (H, W, 3), the eye pass's dropped count
     summed over the shards and the emitted photons a light, and per group
     and shard the eye steps, the photon steps and the photon draws in the
     port's order.  One recording serves every group's photon walks (jitted
     once, their steps split by their counts); each eye pass has its own
-    (its pixel offset).
+    (its pixel offset); groups that share their rays (the same ``org`` and
+    ``dirs`` objects, as the pass groups of an unjittered train loss do)
+    share their eye passes, which draw nothing.
     """
     from raytrace3_tpu.render.deposit import deposit_bruteforce
     from raytrace3_tpu.render.eye import eye_pass
@@ -318,25 +322,31 @@ def sharded_emulation(scene, cfg, groups, n_shard: int, deposit_fn=None):
     with jax_walk_steps() as steps:
         static = jax.jit(lambda k: photon_trace(
             photon_scene, k[1], *emit_photons(k[0], scene.light_pos, scene.light_color, local),
-            cfg.max_depth))
+            cfg.max_depth, newton_fn=newton_fn))
         regen = jax.jit(lambda k, st: photon_trace_regen(
-            photon_scene, k, scene.light_pos, scene.light_color, local, st, cfg.max_depth))
+            photon_scene, k, scene.light_pos, scene.light_color, local, st, cfg.max_depth,
+            newton_fn=newton_fn))
         depo = jax.jit(lambda hp, dep: deposit_fn(hp, dep)[:2])
         update = jax.jit(lambda hp, dn, dt: ppm_update(hp, dn, dt, cfg.update_mode))
+        eyes = {}
         for org, dirs, photon_keys in groups:
-            hps, dropped, eye_steps = [], 0, []
-            for i in range(n_shard):
-                # A new function each time: a cached trace would report to
-                # the recording it was traced in.
-                eye = jax.jit(lambda o, d, off=i * rs: eye_pass(
-                    scene, o, d, cap, cfg.max_depth, cfg.slots, cfg.init_r2, pixel_offset=off,
-                    compact_schedule=cfg.eye_compact_schedule))
-                with jax_walk_steps(pixel_offset=i * rs) as eye_rec:
-                    hp_i, st_i = eye(org[i * rs:(i + 1) * rs], dirs[i * rs:(i + 1) * rs])
-                    jax.block_until_ready(hp_i)
-                hps.append(hp_i)
-                dropped += int(st_i["dropped"])
-                eye_steps.append(eye_rec["eye"])
+            if (id(org), id(dirs)) not in eyes:
+                hps, dropped, eye_steps = [], 0, []
+                for i in range(n_shard):
+                    # A new function each time: a cached trace would report
+                    # to the recording it was traced in.
+                    eye = jax.jit(lambda o, d, off=i * rs: eye_pass(
+                        scene, o, d, cap, cfg.max_depth, cfg.slots, cfg.init_r2,
+                        newton_fn=newton_fn, pixel_offset=off,
+                        compact_schedule=cfg.eye_compact_schedule))
+                    with jax_walk_steps(pixel_offset=i * rs) as eye_rec:
+                        hp_i, st_i = eye(org[i * rs:(i + 1) * rs], dirs[i * rs:(i + 1) * rs])
+                        jax.block_until_ready(hp_i)
+                    hps.append(hp_i)
+                    dropped += int(st_i["dropped"])
+                    eye_steps.append(eye_rec["eye"])
+                eyes[id(org), id(dirs)] = (hps, dropped, eye_steps)
+            hps, dropped, eye_steps = eyes[id(org), id(dirs)]
             hp = jax.tree.map(lambda *xs: jnp.concatenate(xs, 0), *hps)
             rkeys = [jax.random.split(k, cfg.rounds) for k in photon_keys]
             pstates = [regen_state_init(L, local) for _ in range(n_shard)]
