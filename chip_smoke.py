@@ -124,6 +124,22 @@ with a non-zero exit when it fails:
      ``torch_perf_depprep_micro.py`` at their full shapes): every
      candidate's output equal to the others', the port's deposit prep to
      its row-gather twin.
+ 23. ``raytrace3_tpu_torch.entry.entry()`` on the card (finite, positive,
+     no drop, equal bit for bit to ``make_pass_fn``'s pass on the same
+     generator); ``scripts/torch_asset_render.py`` at 64^2 and 2 passes on
+     wall, timg and planet images the phase writes (the atlas read from
+     them, no drop); the bisect (``full`` and ``nonewton`` at 64^2, 4
+     rounds), the deposit micro at its shapes and three rows of the sweep
+     (the block row, the bench's tile row, a coarse-z row), each with 5
+     timed calls; the kernels' launches over the phase are the path
+     ``finish``.  Every kernel the phase runs is held to its plain twin on
+     the phase's own inputs (``held_inputs``, ``hold_kernels``): the asset
+     render's tile deposit (#2) and a Newton call of its walk (#1, 8
+     restarts); the bisect's block deposit (#5 at tile 512 / wchunk 1024 /
+     work cap 16384) and a Newton call of its full pass (#1, 16 restarts);
+     the micro's block deposit; and each sweep row's whole call against
+     the same call through its kernel's plain twin (counts exactly, flux to
+     DEPOSIT_FLUX_RTOL), its counts also equal across the rows.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -272,6 +288,18 @@ INVERSE_STEPS = 10
 TOOLS_ROUNDS = 4
 TOOLS_ISSUE = 2
 TOOLS_REPS = 5
+#: Phase 23: the asset render cut to FINISH_RES^2 and FINISH_PASSES passes
+#: on FINISH_TEXTURES (stem, side) images the phase writes; the bisect's
+#: FINISH_VARIANTS at FINISH_RES^2, TOOLS_ROUNDS rounds and one timed pass;
+#: the deposit micro at its shapes and the sweep's FINISH_SWEEP rows (JAX's
+#: block row, the bench's own tile row, a coarse-z row) at theirs, each
+#: with TOOLS_REPS timed calls.
+FINISH_RES = 64
+FINISH_PASSES = 2
+FINISH_TEXTURES = (("wall", 96), ("timg", 48), ("planet", 80))
+FINISH_VARIANTS = ("full", "nonewton")
+FINISH_SWEEP = ("1d_t512_wc1024_W16k", "tile1d_t256_ch2048_packed",
+                "ztile_zc8.0_t128_ch1024_packed")
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -366,25 +394,24 @@ def make_pass(settings: dict, device, deposit=None, newton_fn=None):
 
 SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu",
            "deposit_block.cu", "deposit_stream.cu")
-
-
-def all_counters() -> dict:
-    """Every kernel's launch counter, by the name of its row."""
-    from raytrace3_tpu_torch.ops import deposit_kernel, lane_kernel, newton_kernel
-
-    return {"newton": newton_kernel.KERNEL, "deposit_tile": deposit_kernel.KERNEL,
-            "deposit_lane": lane_kernel.FORWARD, "deposit_lane_bwd": lane_kernel.BACKWARD,
-            "deposit_block": deposit_kernel.BLOCK_KERNEL,
-            "deposit_stream": lane_kernel.STREAM}
+#: The kernels line's rows, each a ``CudaKernel``'s name (``ops/cuda_build.KERNELS``).
+KERNEL_ROWS = ("newton", "deposit_tile", "deposit_lane", "deposit_lane_bwd",
+               "deposit_block", "deposit_stream")
 
 
 def zero_counters() -> None:
-    for k in all_counters().values():
-        k.launches = 0
+    from raytrace3_tpu_torch.ops.cuda_build import zero_launches
+
+    zero_launches()
 
 
 def read_counters() -> dict:
-    return {name: k.launches for name, k in all_counters().items()}
+    """Each kernel's launches by its row's name (0 for a kernel whose
+    module this process never imported)."""
+    from raytrace3_tpu_torch.ops.cuda_build import launch_counts
+
+    counts = launch_counts()
+    return {name: counts.get(name, 0) for name in KERNEL_ROWS}
 
 
 def compare_deposit(got, want) -> tuple[int, float, float]:
@@ -1302,6 +1329,7 @@ def built_libraries() -> dict:
 
 #: The deposit wrappers whose inputs ``held_inputs`` can record, by module.
 DEPOSIT_WRAPPERS = {"deposit_tile": "raytrace3_tpu_torch.ops.deposit_kernel",
+                    "deposit_block": "raytrace3_tpu_torch.ops.deposit_kernel",
                     "deposit_lane": "raytrace3_tpu_torch.ops.lane_kernel",
                     "deposit_lane_bwd": "raytrace3_tpu_torch.ops.lane_kernel"}
 #: The Newton call ``held_inputs`` records: this many calls after the run's
@@ -1355,12 +1383,16 @@ def hold_kernels(held: dict, newton_fn=None) -> list[dict]:
     to DEPOSIT_FLUX_RTOL of the twin's sum of its terms' magnitudes, since
     the cotangent is signed, and to itself bit for bit over two calls);
     Newton's hits, patch ids and t, u, v to NEWTON_ATOL (bit for bit)."""
-    from raytrace3_tpu_torch.ops.deposit_kernel import deposit_tile, deposit_tile_plain
+    from raytrace3_tpu_torch.ops.deposit_kernel import (deposit_block, deposit_block_plain,
+                                                        deposit_tile, deposit_tile_plain)
     from raytrace3_tpu_torch.ops.lane_kernel import (deposit_lane, deposit_lane_bwd,
                                                      deposit_lane_bwd_plain, deposit_lane_plain)
     from raytrace3_tpu_torch.ops.newton_kernel import solve_plain
 
     f64 = dict(sum_dtype=torch.float64)
+    twins = {"deposit_tile": (deposit_tile, deposit_tile_plain),
+             "deposit_block": (deposit_block, deposit_block_plain),
+             "deposit_lane": (deposit_lane, deposit_lane_plain)}
     rows = []
     for name, args in held.items():
         if name == "newton":
@@ -1387,9 +1419,10 @@ def hold_kernels(held: dict, newton_fn=None) -> list[dict]:
                              rel=rel, bitwise=bitwise, ok=rel <= DEPOSIT_FLUX_RTOL and bitwise
                              and float(scale.max()) > 0))
         else:
-            kernel, plain = ((deposit_tile, deposit_tile_plain) if name == "deposit_tile"
-                             else (deposit_lane, deposit_lane_plain))
-            packed, dep_packed = args[-2], args[-1]
+            kernel, plain = twins[name]
+            # (wt, blk, wcmp, packed, dep_packed, tile, wchunk) for the
+            # block deposit; the others end at (packed, dep_packed).
+            packed, dep_packed = args[3:5] if name == "deposit_block" else args[-2:]
             want = plain(*args, **f64)
             cnt_mismatch, rel, _ = compare_deposit(kernel(*args), want)
             rows.append(dict(kernel=name, shape=f"{packed.shape[0]} hit slots x "
@@ -1850,6 +1883,144 @@ def phase_tools(card: str, device) -> dict:
     return launches
 
 
+def phase_entry(card: str, device) -> None:
+    """Phase 23, first part: ``raytrace3_tpu_torch.entry.entry()`` on the
+    card, its image finite and positive and equal bit for bit to
+    ``entry_pass``'s (``make_pass_fn`` at its config) on the same
+    generator, both drop counters 0."""
+    from raytrace3_tpu_torch.entry import entry, entry_pass
+
+    t0 = time.perf_counter()
+    fn, (gen,) = entry()
+    img = fn(gen)
+    img2, stats = entry_pass()(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(img, img2))
+    drops = {k: int(stats[k]) for k in ("dropped", "deposits_dropped")}
+    print(f"[23] entry(): image {tuple(img.shape)}, max {float(img.max()):.4g}, finite "
+          f"{bool(torch.isfinite(img).all())}, equal to make_pass_fn's bit for bit {same}; "
+          f"{drops}; two passes {time.perf_counter() - t0:.1f} s ({card})")
+    if not (same and bool(torch.isfinite(img).all()) and float(img.max()) > 0.0
+            and tuple(img.shape) == (64, 64, 3) and not any(drops.values())):
+        raise SystemExit("phase 23 failed: entry()'s pass is wrong")
+
+
+def phase_asset_render(card: str, holds: list) -> None:
+    """Phase 23: ``scripts/torch_asset_render.py`` cut to FINISH_RES^2 and
+    FINISH_PASSES passes on the card, its atlas read from image files the
+    phase writes (seeded patterns, PNG by the standard library).  Its tile
+    deposit's first call and a Newton call of its photon walk (the script's
+    solver, built at its NEWTON, handed in through ``held_inputs``) are
+    recorded into ``holds``."""
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.testing import load_script
+    from raytrace3_tpu_torch.utils.image import encode_png
+
+    asset = load_script("torch_asset_render")
+    newton_fn = make_newton(**asset.NEWTON)
+    backends = asset.backends
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    with (tempfile.TemporaryDirectory() as tmp,
+          held_inputs({"deposit_tile": 0}, newton_fn) as (held, solver)):
+        for stem, side in FINISH_TEXTURES:
+            with open(os.path.join(tmp, f"{stem}.png"), "wb") as f:
+                f.write(encode_png(rng.integers(0, 256, (side, side, 3), dtype=np.uint8)))
+        out = os.path.join(tmp, "asset.json")
+        asset.backends = lambda scene, dev: (backends(scene, dev)[0], solver)
+        try:
+            rc = asset.main(["--res", str(FINISH_RES), "--passes", str(FINISH_PASSES),
+                             "--assets", tmp, "--out", out,
+                             "--png", os.path.join(tmp, "asset.png")])
+        finally:
+            asset.backends = backends
+        rec = json.load(open(out)) if rc == 0 else {}
+        png = os.path.exists(os.path.join(tmp, "asset.png"))
+    holds.append(("asset render", held, newton_fn, {"deposit_tile", "newton"}))
+    print(f"[23] asset render {FINISH_RES}^2, {FINISH_PASSES} passes: rc {rc}, slots "
+          f"{rec.get('asset_slots')}, dropped {rec.get('dropped')}, deposits_dropped "
+          f"{rec.get('deposits_dropped')}, {rec.get('meter', {}).get('total_seconds', 0):.2f} s "
+          f"of passes; {time.perf_counter() - t0:.1f} s ({card})")
+    if not (rc == 0 and png and rec["device"] == "cuda"
+            and set(rec["asset_slots"]) == {stem for stem, _ in FINISH_TEXTURES}
+            and rec["dropped"] == 0 and rec["deposits_dropped"] == 0):
+        raise SystemExit("phase 23 failed: the asset render is wrong")
+
+
+def phase_finish_tools(card: str, device, holds: list) -> None:
+    """Phase 23: the bisect, the deposit micro and the sweep cut
+    (``scripts/torch_perf_{bisect,deposit_micro,deposit_sweep}.py``).  The
+    bisect's first block deposit and a Newton call of its full pass (kernel
+    #1 at its restarts), and the micro's block deposit, are recorded into
+    ``holds``; each sweep row holds itself to its plain twin."""
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.testing import load_script
+
+    bisect = load_script("torch_perf_bisect")
+    micro = load_script("torch_perf_deposit_micro")
+    sweep = load_script("torch_perf_deposit_sweep")
+    t0 = time.perf_counter()
+    restarts, photons = bisect.JAX_DEFAULTS["restarts"], bisect.JAX_DEFAULTS["photons"]
+    newton_fn = make_newton(bisect.config(FINISH_RES, TOOLS_ROUNDS, photons).newton_iters,
+                            restarts)
+    with held_inputs({"deposit_block": 0}, newton_fn) as (held, solver):
+        b = bisect.measure(list(FINISH_VARIANTS), FINISH_RES, TOOLS_ROUNDS, photons, restarts,
+                           1, device, newton_fn=solver)
+    holds.append((f"bisect's full pass ({restarts} restarts)", held, newton_fn,
+                  {"deposit_block", "newton"}))
+    for v, r in b.items():
+        print(f"[23] bisect {v} at {FINISH_RES}^2, {TOOLS_ROUNDS} rounds: first "
+              f"{r['first_pass_seconds']:.3f} s, {r['pass_seconds']:.3f} s a pass, dropped "
+              f"{r['dropped']}, deposits_dropped {r['deposits_dropped']}, launches "
+              f"{r['launches']} ({card})")
+    with held_inputs({"deposit_block": 0}) as (held, _):
+        m = micro.measure(micro.DEFAULTS["d"], micro.DEFAULTS["c"], TOOLS_REPS, 0, device)
+    holds.append(("deposit micro", held, None, {"deposit_block"}))
+    block = m["stages"]["block_deposit_full"]
+    print("[23] deposit micro (device/wall ms): " + ", ".join(
+        f"{k} {r['device_ms']:.3f}/{r['wall_ms']:.3f}" for k, r in m["stages"].items())
+        + f"; block overflow {block['overflow']}, pairs taken {block['pairs_taken']} ({card})")
+    rows = [r for r in sweep.configs() if r[0] in FINISH_SWEEP]
+    s = sweep.sweep(rows, sweep.DEFAULTS["d"], sweep.DEFAULTS["c"], TOOLS_REPS, device)
+    ref = s["counts_reference"]
+    for r in s["rows"]:
+        facts = r["error"] if "error" in r else (
+            f"device {r['device_ms']:.3f} ms, wall {r['wall_ms']:.3f} ms, overflow "
+            f"{r['overflow']}, items {r.get('items')}; against its plain twin on the same "
+            f"inputs {r['twin_count_mismatch']} count mismatches of {r['twin_pairs']} pairs, "
+            f"flux {r['twin_flux_rel']:.3g}, holds {r['holds_twin']}; counts equal to "
+            f"{ref}'s {r.get('counts_equal_reference')}")
+        print(f"[23] sweep {r['cfg']}: {facts} ({card})")
+    print(f"[23] tools {time.perf_counter() - t0:.1f} s")
+    full, nonewton = b["full"], b["nonewton"]
+    if not (full["launches"]["newton"] > 0 and full["launches"]["deposit_block"] > 0
+            and nonewton["launches"]["newton"] == 0 and full["image_finite"]
+            and all(r["device_ms"] is not None for r in m["stages"].values())
+            and block["pairs_taken"] > 0
+            and s["all_rows_ok"] and len(s["rows"]) == len(FINISH_SWEEP)):
+        raise SystemExit("phase 23 failed: the bisect, the deposit micro or the sweep is wrong")
+
+
+def phase_finish(card: str, device) -> dict:
+    """Phase 23: ``entry()``, the asset render and the three deposit and
+    pass tools, each cut; the kernels' launches counted over all of it as a
+    path of its own, then each recorded kernel call held to its plain twin
+    on its own inputs (those launches uncounted)."""
+    t0 = time.perf_counter()
+    holds = []
+    zero_counters()
+    torch.cuda.synchronize()
+    phase_entry(card, device)
+    phase_asset_render(card, holds)
+    phase_finish_tools(card, device, holds)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    for what, held, newton_fn, want in holds:
+        check_holds(23, what, [hold_kernels(held, newton_fn)], want, card)
+    print(f"[23] launches {launches}; {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -1889,17 +2060,19 @@ def main() -> int:
     inverse = phase_inverse(card, device)
     print(f"[19-21] {time.perf_counter() - t0:.1f} s ({card})")
     tools = phase_tools(card, device)
+    finish = phase_finish(card, device)
     # Each kernel's launches on each path, each path counted from 0: the
     # render pass (phase 5), the train step (phase 9), the CLI at
     # reference1024 (phase 11), the stream deposit's pass (phase 12), the
     # sharded render (phase 16), the two-rank runs on one card (phase 17),
     # the dry run (phase 18), summed over their ranks, the restart study
-    # (phase 19), the grad check (phase 20), the albedo recovery (phase 21)
-    # and the dispatch tool's passes (phase 22).
+    # (phase 19), the grad check (phase 20), the albedo recovery (phase 21),
+    # the dispatch tool's passes (phase 22) and entry(), the asset render,
+    # the bisect, the deposit micro and the sweep (phase 23).
     paths = {"render": render, "train": train, "cli": cli_launches, "stream": stream_launches,
              "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun,
              "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse,
-             "tools": tools}
+             "tools": tools, "finish": finish}
     rows = (newton, deposit, lane, lane_bwd, block, stream)
     for row in rows:
         name = row["name"]

@@ -84,6 +84,17 @@ def call_times(fn, reps: int, device) -> tuple[float | None, float]:
     return (statistics.median(dev) if cuda else None), statistics.median(wall)
 
 
+def device_events(fn) -> int:
+    """The device events (kernels, copies, fills) of ``fn()`` on the card,
+    under ``torch.profiler``: in a host-bound pass, what the host issues."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def synchronizing_calls(fn, root: str | None = None):
     """(``fn()``, the calls in it that made the host wait for the card)
     under ``torch.cuda.set_sync_debug_mode("warn")``: a dict from each

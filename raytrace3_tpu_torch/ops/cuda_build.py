@@ -72,15 +72,23 @@ def build(source: str, csrc_dir: Path = CSRC_DIR) -> Path:
     return lib
 
 
+#: The counted kernels by name: each ``CudaKernel`` built with a ``name``.
+KERNELS: dict = {}
+
+
 class CudaKernel:
     """One C entry point of one source, loaded at first launch.
 
     ``launches`` counts successful launches; only :meth:`launch` adds to it.
-    ``csrc_dir`` goes to :func:`build` (a comparison script loads another
-    tree's sources this way).
+    With a ``name`` the kernel enters ``KERNELS``, which
+    :func:`launch_counts` reads.  ``csrc_dir`` goes to :func:`build` (a
+    comparison script loads another tree's sources this way, unnamed).
     """
 
-    def __init__(self, source: str, symbol: str, argtypes, csrc_dir: Path = CSRC_DIR):
+    def __init__(self, source: str, symbol: str, argtypes, csrc_dir: Path = CSRC_DIR,
+                 name: str | None = None):
+        if name is not None:
+            KERNELS[name] = self
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
@@ -131,3 +139,21 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def zero_launches() -> None:
+    """Set every named kernel's launch count to 0."""
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every named kernel's launch count, by name (the kernels of the
+    modules imported so far)."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def launches_since(before: dict) -> dict:
+    """Every named kernel's launches since ``before`` (a ``launch_counts()``;
+    a kernel whose module was imported since counts from 0)."""
+    return {name: n - before.get(name, 0) for name, n in launch_counts().items()}

@@ -68,7 +68,7 @@ KERNEL = CudaKernel("deposit_tile.cu", "rt3_deposit_tile", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
     ctypes.c_void_p,                                     # out
     *_GEOMETRY_ARGS,
-])
+], name="deposit_tile")
 BLOCK_KERNEL = CudaKernel("deposit_block.cu", "rt3_deposit_block", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # wt, blk, wcmp
     ctypes.c_int, ctypes.c_int,                          # W, wchunk
@@ -76,7 +76,7 @@ BLOCK_KERNEL = CudaKernel("deposit_block.cu", "rt3_deposit_block", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # packed, dep, Dp
     ctypes.c_void_p,                                     # out
     *_GEOMETRY_ARGS,
-])
+], name="deposit_block")
 
 #: csrc/deposit_stage.cuh's compiled constants: hit slots a thread holds
 #: (kSlotsPerThread), lanes per staged stage (kStageLanes), stages in the

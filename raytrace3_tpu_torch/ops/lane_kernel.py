@@ -54,7 +54,7 @@ FORWARD = CudaKernel("deposit_lane.cu", "rt3_deposit_lane", [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,      # threads, splits, smem, scratch
     ctypes.c_void_p, ctypes.c_void_p,                               # part_run, part_end
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # n_parts, n_items, per_block
-])
+], name="deposit_lane")
 BACKWARD = CudaKernel("deposit_lane_bwd.cu", "rt3_deposit_lane_bwd", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # run_lo, run_hi, n_blocks, chunk
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # wt, wa, wb, tile
@@ -63,14 +63,14 @@ BACKWARD = CudaKernel("deposit_lane_bwd.cu", "rt3_deposit_lane_bwd", [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,                    # threads, smem, scratch
     ctypes.c_void_p, ctypes.c_void_p,                               # part_run, part_end
     ctypes.c_int, ctypes.c_int, ctypes.c_int,                       # n_parts, n_items, per_block
-])
+], name="deposit_lane_bwd")
 STREAM = CudaKernel("deposit_stream.cu", "rt3_deposit_stream", [
     ctypes.c_void_p, ctypes.c_void_p,                               # itf, itab
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # starts, ends, n_tiles, tile
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,            # packed, dep, Dp
     ctypes.c_void_p,                                                # out
     *_GEOMETRY_ARGS,
-])
+], name="deposit_stream")
 #: The stream items' 16-bit mask fields hold offsets up to 2 chunks.
 MAX_STREAM_CHUNK = 0x7FFF
 #: the forward's fetch alignment on the TPU (the DMA's lane granule): item

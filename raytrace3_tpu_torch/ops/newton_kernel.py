@@ -47,7 +47,7 @@ KERNEL = CudaKernel("newton.cu", "rt3_newton_solve", [
     ctypes.c_float,                                         # res2_eps
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # t, u, v
     ctypes.c_void_p, ctypes.c_void_p,                       # pid, hit
-])
+], name="newton")
 
 #: The card's fused multiply-add, elementwise: what ``fma32`` is held to.
 FMA = CudaKernel("newton.cu", "rt3_fma32", [ctypes.c_void_p] * 4 + [ctypes.c_int])

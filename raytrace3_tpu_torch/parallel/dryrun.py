@@ -13,9 +13,9 @@ hit points are real multi-bounce ones:
    albedos, the atlas and the teapot's control points (the albedos' not
    zero).
 
-Both drop counters of the forward pass are checked, the eye's included
-(``check_drops``; JAX's dry run checks only the deposit counter,
-ADVICE.md:5).  On the card the kernels run; on the CPU their plain twins.
+Both drop counters of both steps are checked, the eye's included
+(``utils.metrics.check_drops``; JAX's dry run checks only the deposit
+counter, ADVICE.md:5).  On the card the kernels run; on the CPU their plain twins.
 
     python -m raytrace3_tpu_torch.parallel.dryrun [ranks] [--platform cpu] [--backend gloo]
         [--out docs/MULTICHIP_PORT.json]
@@ -34,15 +34,8 @@ import argparse
 import numpy as np
 import torch
 
+from ..utils.metrics import check_drops
 from .mesh import make_mesh
-
-
-def check_drops(stats: dict, what: str) -> None:
-    """Raise unless both drop counters of ``stats`` are 0: a clipped eye
-    ray or a dropped deposit is lost flux."""
-    for k in ("dropped", "deposits_dropped"):
-        if int(stats[k]) != 0:
-            raise RuntimeError(f"{what}: {k} = {int(stats[k])}, the dry run drops nothing")
 
 
 def _setup(mesh):
@@ -121,8 +114,7 @@ def dryrun(device=None) -> dict:
     params, opt, loss, tstats = step_fn(params, opt, rng, target)
     if not np.isfinite(float(loss)):
         raise RuntimeError(f"non-finite loss {float(loss)}")
-    if int(tstats["deposits_dropped"]) != 0:
-        raise RuntimeError(f"train step: deposits_dropped = {int(tstats['deposits_dropped'])}")
+    check_drops(tstats, "train step")
     for k, v in params.items():
         if not bool(torch.isfinite(v).all()) or not bool(torch.isfinite(v.grad).all()):
             raise RuntimeError(f"non-finite params or gradients in {k}")

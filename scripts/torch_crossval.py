@@ -22,7 +22,9 @@ plain twin on the CPU), else the default solver ``solve_winner``.
 
 Writes ``docs/CROSSVAL_PORT{,_TEX,_SPPM,_PN<N>}.json`` (``--out``) and the
 port's image ``docs/crossval_port{,_tex,_sppm,_pn<N>}.png`` (``--png``),
-never the JAX package's artifacts.  Exits 1 when the run fails the rule.
+never the JAX package's artifacts.  Exits 1 when the run fails the rule,
+and 3, writing nothing, when the port's pass dropped an eye ray or a
+deposit (``utils.metrics.refuse_drops``).
 
   python3 scripts/torch_crossval.py [--res 128] [--photons 2097152] \\
       [--block 16] [--textures] [--update-mode sppm] [--newton-restarts 8] \\
@@ -122,6 +124,7 @@ def main(argv=None) -> int:
 
     from raytrace3_tpu_torch.core.device import card_line, resolve_device
     from raytrace3_tpu_torch.utils.image import save_png
+    from raytrace3_tpu_torch.utils.metrics import refuse_drops
 
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
     cuda = device.type == "cuda"
@@ -162,8 +165,7 @@ def main(argv=None) -> int:
     port_s = time.perf_counter() - t0
     stats = {k: float(v) for k, v in stats.items()}
     print(f"torch_crossval: port pass {port_s:.1f} s, {stats}", file=sys.stderr, flush=True)
-    if stats["deposits_dropped"] != 0:
-        raise SystemExit(f"the port's pass dropped deposits: {stats}")
+    refuse_drops(stats, f"the port's pass ({scene_name}, {args.update_mode})")
 
     po, pc = pool(ours, args.block), pool(cpp, args.block)
     mask = pc.mean(-1) > 0.05            # skip near-black blocks (MC noise floor)

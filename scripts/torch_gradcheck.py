@@ -29,7 +29,9 @@ Columns (JAX's names in brackets):
     work_cap=16384, differentiable=True)``, kernels #3 and #4.
 
 Writes JAX's record with the device, the card's name and power limit, both
-drop counters summed over every render, and ``reduced``.  Imports no JAX.
+drop counters summed over every render, and ``reduced``.  Exits 1 when the
+record does not pass, and 3, writing nothing, when a render dropped an eye
+ray or a deposit (``utils.metrics.refuse_drops``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -248,6 +250,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.platform)
     import raytrace3_tpu_torch  # noqa: F401  (TF32 off)
+    from raytrace3_tpu_torch.utils.metrics import refuse_drops
 
     record = {"scene": "bezier_patch (curved teapot body patch 4)", "res": args.res,
               "photons": args.photons * args.rounds,
@@ -262,6 +265,7 @@ def main(argv=None) -> int:
             g = record["groups"][f"{name}[{column}]"] = summarize(name, results)
             print(f"gradcheck: {name}[{column}] {g['passed']}/{g['checked']} "
                   f"{'ok' if g['group_pass'] else 'FAIL'}", file=sys.stderr, flush=True)
+    refuse_drops(drops, f"the grad check's renders ({args.columns})")
     record.update(verdict(record["groups"]))
     record["seconds"] = round(time.time() - t0, 1)
     record.update(eye_dropped_total=drops["dropped"],

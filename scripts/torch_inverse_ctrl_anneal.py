@@ -18,7 +18,9 @@ Bezier hits; on the CPU the default solver does.  Writes
 ``docs/INVERSE_CTRL_ANNEAL_PORT.json`` (JAX's keys, with the device, the
 card's name and power limit, both drop counters summed over every render,
 and ``reduced``) and ``docs/inverse_ctrl_anneal_port.png`` (target |
-initial | recovered at the last radius).  Imports no JAX.
+initial | recovered at the last radius).  Exits 1 when the recovery misses
+JAX's criterion, and 3, writing nothing, when a render dropped an eye ray
+or a deposit (``utils.metrics.refuse_drops``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ def main(argv=None) -> int:
     from raytrace3_tpu_torch.render.sppm import tonemap
     from raytrace3_tpu_torch.utils.config import RenderConfig
     from raytrace3_tpu_torch.utils.image import save_png
+    from raytrace3_tpu_torch.utils.metrics import refuse_drops
 
     base_cfg = RenderConfig(**CFG)
     if args.res:
@@ -139,6 +142,7 @@ def main(argv=None) -> int:
         sf, pf = surface_err(ctrl), param_err(ctrl)
         render = make_render(stages[-1])
         imgs = [render(true), render(params), render(dict(params, ctrl=ctrl.detach()))]
+    refuse_drops(drops, f"the anneal over stages {args.stages}")
     reduced = [f"{k.replace('_', '-')} {v} -> {getattr(args, k)}" for k, v in DEFAULTS.items()
                if getattr(args, k) != v]
     if args.res:

@@ -29,7 +29,9 @@ epanechnikov`` takes the smooth deposit (``deposit_bruteforce_epa``, plain
 autograd).  Writes ``docs/INVERSE_<EXP>[_EPA]_PORT.json`` (JAX's keys, with
 the device, the card's name and power limit, both drop counters summed
 over every render, and ``reduced``) and the side-by-side PNG target |
-initial | recovered.  Imports no JAX.
+initial | recovered.  Exits 1 when the recovery misses JAX's criterion,
+and 3, writing nothing, when a render dropped an eye ray or a deposit
+(``utils.metrics.refuse_drops``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -280,8 +282,12 @@ def main(argv=None) -> int:
     import raytrace3_tpu_torch  # noqa: F401  (TF32 off)
     from raytrace3_tpu_torch.render.sppm import tonemap
     from raytrace3_tpu_torch.utils.image import save_png
+    from raytrace3_tpu_torch.utils.metrics import refuse_drops
 
     record, imgs = recover(args, device)
+    refuse_drops({"dropped": record["eye_dropped_total"],
+                  "deposits_dropped": record["deposits_dropped_total"]},
+                 f"inverse rendering ({args.exp}, {args.kernel}) over {args.steps} steps")
     suffix = "_EPA" if args.kernel == "epanechnikov" else ""
     out = args.out or os.path.join(REPO, "docs", f"INVERSE_{args.exp.upper()}{suffix}_PORT.json")
     png = args.png or os.path.join(REPO, "docs", f"inverse_{args.exp}{suffix.lower()}_port.png")

@@ -49,24 +49,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from chip_smoke import BENCH, make_pass  # noqa: E402
-from raytrace3_tpu_torch.core.device import (record_fields, resolve_device,  # noqa: E402
-                                             synchronizing_calls)
+from raytrace3_tpu_torch.core.device import (device_events, record_fields,  # noqa: E402
+                                             resolve_device, synchronizing_calls)
 from raytrace3_tpu_torch.render.driver import pass_generator  # noqa: E402
 
 DEFAULTS = dict(res=BENCH["width"], rounds=BENCH["rounds"], photons=BENCH["photons_per_round"],
                 issue=4)
 NS = (2, 4, 8)
-
-
-def device_events(fn) -> int:
-    """The device events (kernels, copies, fills) of ``fn()`` under
-    ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def measure(settings: dict, device, ns=NS, issue: int = 4) -> dict:

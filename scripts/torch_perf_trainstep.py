@@ -15,8 +15,9 @@ Newton kernel (#1) at 8 restarts.  One warm step (the kernels' first
 load), then ``--steps`` timed steps, each from its own generator, one
 synchronisation at the end.  Writes ``docs/TRAINSTEP_PORT.json``: JAX's
 keys, the peak device memory, both drop counters summed over every step,
-the device, the card's name and power limit, and ``reduced``.  Imports no
-JAX.
+the device, the card's name and power limit, and ``reduced``; a run that
+dropped an eye ray or a deposit writes nothing and exits 3
+(``utils.metrics.refuse_drops``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from raytrace3_tpu_torch.core.device import record_fields, resolve_device  # noqa: E402
+from raytrace3_tpu_torch.utils.metrics import refuse_drops  # noqa: E402
 
 DEFAULTS = dict(res=256, steps=6, rounds=4, photons=32768)
 
@@ -111,7 +113,8 @@ def main(argv=None) -> int:
         "reduced": [f"{k} {v} -> {getattr(args, k)}" for k, v in DEFAULTS.items()
                     if getattr(args, k) != v],
     }
-    if not record["loss_finite"] or drops["deposits_dropped"]:
+    refuse_drops(drops, f"train step at {args.res}^2 over {args.steps + 1} steps")
+    if not record["loss_finite"]:
         raise SystemExit(f"the train step failed: {record}")
     if cuda and record["deposit_backend_selected"] != "DepositLane":
         raise SystemExit(f"the default deposit VJP at {args.res}^2 on the card is "

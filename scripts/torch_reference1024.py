@@ -16,7 +16,8 @@ points and mean r2.  ``--profile-dir`` passes the CLI's own flag on (a
 launches, device busy time, idle share and top kernels to the record.
 Writes ``docs/REFERENCE1024_PORT.json`` (JAX's keys, with the device, the
 card's name and power limit, and ``reduced``), the PNG and the per-pass
-metrics JSONL.  Imports no JAX.
+metrics JSONL; a run that dropped an eye ray or a deposit writes no record
+and exits 3 (``utils.metrics.refuse_drops``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from raytrace3_tpu_torch.core.device import record_fields, resolve_device  # noqa: E402
+from raytrace3_tpu_torch.utils.metrics import DROP_COUNTERS, refuse_drops  # noqa: E402
 
 PASSES = 50
 RES = 1024
@@ -98,6 +100,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"cli.main exited {rc}")
 
     recs = [json.loads(line) for line in open(args.metrics)]
+    refuse_drops({k: sum(r[k] for r in recs) for k in DROP_COUNTERS},
+                 f"reference1024 over {len(recs)} passes")
     ps = np.array([r["pass_seconds"] for r in recs])
     pps = np.array([r["photons_per_s"] for r in recs])
     emitted = pps * ps
@@ -114,8 +118,8 @@ def main(argv=None) -> int:
         "mrays_per_s_median": float(np.median(mrays)),
         "pass_seconds": [float(x) for x in ps],
         "hitpoints_final": int(recs[-1].get("hitpoints", 0)),
-        "deposits_dropped_total": int(sum(r.get("deposits_dropped", 0) for r in recs)),
-        "eye_dropped_total": int(sum(r.get("dropped", 0) for r in recs)),
+        "deposits_dropped_total": int(sum(r["deposits_dropped"] for r in recs)),
+        "eye_dropped_total": int(sum(r["dropped"] for r in recs)),
         "mean_r2_final": float(recs[-1].get("mean_r2", 0.0)),
         "image": os.path.relpath(args.png, REPO),
         "backend": device.type, **record_fields(device), "reduced": reduced,

@@ -270,13 +270,14 @@ def test_dryrun_checks_both_drop_counters():
 def test_dryrun_on_ranks(ranks):
     """``parallel/dryrun.py`` on a 2 x 2 and a 2 x 4 mesh of CPU ranks: the
     tuned forward pass (regen, staged eye, layout-space tile deposit,
-    Newton) with both counters 0, and the train step through the lane
-    deposit with finite gradients; every rank reports the same."""
+    Newton) and the train step through the lane deposit, each with both
+    drop counters 0, finite gradients; every rank reports the same."""
     from raytrace3_tpu_torch.parallel.dryrun import dryrun_multichip
 
     outs = dryrun_multichip(ranks, device="cpu", timeout=TIMEOUT)  # gloo, as on the CPU
     assert len(outs) == ranks and outs[0]["mesh"] == {"pass": 2, "photon": ranks // 2}
     assert outs[0]["forward"]["dropped"] == 0 and outs[0]["forward"]["deposits_dropped"] == 0
+    assert outs[0]["train"]["dropped"] == 0 and outs[0]["train"]["deposits_dropped"] == 0
     assert all(o == outs[0] for o in outs)
     assert np.isfinite(outs[0]["loss"]) and outs[0]["grad_max"]["diff"] > 0
 

@@ -6,7 +6,12 @@ Each ``docs/*_PORT.json`` of Slice E exists, was written on the card (its
 carries the keys of the JAX record it stands beside, and dropped nothing.
 The grad check's record passes by the JAX script's own rule, recomputed
 here from its checks; the albedo recovery ends below 1% of its initial
-identifiable parameter error.
+identifiable parameter error; the Epanechnikov ctrl recovery starts from
+JAX's perturbation.  The tools' records carry their keys: the bisect every
+variant (``rbg`` without a counterpart) with its full pass drop-free, the
+deposit micro every stage (its block deposit taking pairs), the sweep every
+one of JAX's configurations held to its plain twin and with its counts
+equal to the reference row's wherever it did not overflow.
 """
 
 import json
@@ -27,6 +32,7 @@ RECORDS = {
     "INVERSE_CTRL_PORT.json": ("docs/INVERSE_CTRL_RUN.json", "torch_inverse_render.py"),
     "INVERSE_CTRL_ANNEAL_PORT.json": ("docs/INVERSE_CTRL_ANNEAL.json",
                                       "torch_inverse_ctrl_anneal.py"),
+    "INVERSE_CTRL_EPA_PORT.json": ("docs/INVERSE_CTRL_EPA.json", "torch_inverse_render.py"),
     "REFERENCE1024_PORT.json": ("docs/REFERENCE1024.json", "torch_reference1024.py"),
     "TRAINSTEP_PORT.json": ("docs/TRAINSTEP.json", "torch_perf_trainstep.py"),
 }
@@ -76,6 +82,16 @@ def test_albedo_record_recovers_the_parameters():
     assert rec["initial_param_err"] == _load("docs/INVERSE_ALBEDO.json")["initial_param_err"]
 
 
+def test_ctrl_epa_record_starts_where_jax_does():
+    """The Epanechnikov ctrl recovery at JAX's record's settings draws JAX's
+    perturbation: the same start, the same coordinates."""
+    rec, jax_rec = _load("docs/INVERSE_CTRL_EPA_PORT.json"), _load("docs/INVERSE_CTRL_EPA.json")
+    for k in ("res", "steps", "n_avg", "sigma", "lr", "photons_per_step", "deposit_kernel",
+              "initial_param_err", "initial_surface_err", "identifiable_coords"):
+        assert rec[k] == jax_rec[k], k
+    assert rec["initial_param_err"] == 0.01413
+
+
 #: The records of the host-side tools, the dry run and the four-card
 #: readings, each with the keys its script writes at its defaults.
 CARD_RECORDS = {
@@ -89,6 +105,10 @@ CARD_RECORDS = {
     "DEPPREP_PORT.json": {"d", "candidates", "outputs_identical"},
     "MULTICHIP_PORT.json": {"mesh", "ranks", "backend", "loss", "forward", "train"},
     "SHARDED_CARDS_PORT.json": {"cards", "shapes", "supers"},
+    "PERF_BISECT_PORT.json": {"res", "rounds", "photons", "timed_passes", "variants"},
+    "DEPOSIT_MICRO_PORT.json": {"d", "dc", "c", "stages"},
+    "DEPOSIT_SWEEP_PORT.json": {"d", "c", "rows", "counts_reference", "pairs_counted",
+                                "all_rows_ok"},
 }
 
 
@@ -104,6 +124,28 @@ def test_host_side_record_written_on_the_card(name):
         assert len(rec["pass_issue_s"]) == 4 and rec["reduced"] == []
     if name in ("COMPACT_PORT.json", "DEPPREP_PORT.json"):
         assert rec["outputs_identical"] and rec["reduced"] == []
+    if name == "PERF_BISECT_PORT.json":
+        bisect = load_script("torch_perf_bisect")
+        assert list(rec["variants"]) == list(bisect.VARIANTS)
+        assert set(rec["variants"]["rbg"]) == {"no_counterpart"}
+        full = rec["variants"]["full"]
+        assert full["dropped"] == full["deposits_dropped"] == 0
+        assert full["launches"]["newton"] > 0 and full["launches"]["deposit_block"] > 0
+        assert rec["res"] == 512 and rec["rounds"] == 16 and rec["photons"] == 131072
+    if name == "DEPOSIT_MICRO_PORT.json":
+        assert all(st["device_ms"] > 0 for st in rec["stages"].values())
+        assert rec["reduced"] == [] and rec["d"] == 14 * 131072
+        assert rec["stages"]["block_deposit_full"]["pairs_taken"] > 0
+    if name == "DEPOSIT_SWEEP_PORT.json":
+        sweep = load_script("torch_perf_deposit_sweep")
+        assert [r["cfg"] for r in rec["rows"]] == [n for n, _, _ in sweep.configs()]
+        assert rec["counts_reference"] == "tile1d_t128_ch1024" and rec["pairs_counted"] > 0
+        for r in rec["rows"]:
+            assert "error" not in r and r["device_ms"] > 0, r["cfg"]
+            assert r["counts_equal_reference"] or r["overflow"] > 0, r["cfg"]
+            assert r["holds_twin"] and r["twin_count_mismatch"] == 0, r["cfg"]
+            assert r["twin_pairs"] > 0 and r["twin_flux_rel"] <= sweep.TWIN_FLUX_RTOL, r["cfg"]
+        assert rec["all_rows_ok"] and rec["reduced"] == []
 
 
 def test_multichip_record_is_the_2x4_dry_run():

@@ -406,12 +406,13 @@ def test_micro_benchmark_scripts_on_cpu(tmp_path):
 
 
 def test_tool_scripts_import_no_jax():
-    """Every Slice E script imports torch and the port only (loaded as a
-    module in a fresh interpreter, nothing run)."""
+    """Every tooling script of the port imports torch and the port only
+    (loaded as a module in a fresh interpreter, nothing run)."""
     names = ["torch_newton_restart_study", "torch_gradcheck", "torch_inverse_render",
              "torch_inverse_ctrl_anneal", "torch_reference1024", "torch_perf_trainstep",
              "torch_perf_dispatch_micro", "torch_perf_compact_micro",
-             "torch_perf_depprep_micro", "torch_sharded_cards"]
+             "torch_perf_depprep_micro", "torch_sharded_cards", "torch_asset_render",
+             "torch_perf_bisect", "torch_perf_deposit_micro", "torch_perf_deposit_sweep"]
     code = ("import runpy, sys\n"
             f"for n in {names!r}: runpy.run_path('scripts/' + n + '.py', run_name=n)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
