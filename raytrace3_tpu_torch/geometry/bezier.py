@@ -22,8 +22,9 @@ import torch
 
 from ..core.types import Record
 from ..core.vecmath import M_EPS, MAX_DIST, cross, dot, norm2, normalize
-from ..ops.compact import compact_indices
+from ..ops.compact import compact_indices_keyed
 from ..ops.solve3 import solve3_columns
+from ..utils.trace import count_bezier_compaction
 from .aabb import aabb_from_points, slab_test
 
 #: Reference Newton iteration budget (Bezier.h:6 ``MAX_ITER 10``).
@@ -236,7 +237,9 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     normal Su x Sv flipped toward the viewer.  ``compact_frac`` < 1 gathers
     only the rays that pass the object AABB into a buffer of
     ``max(8, int(R * compact_frac))`` lanes before the solve; gated rays
-    beyond that capacity count as misses.
+    beyond that capacity count as misses.  Inside a pass's tally
+    (``utils.trace.bezier_tally``) each compaction adds its gated count,
+    which the pass reports as ``bezier_overflow`` and lane use.
 
     ``newton_fn``: a winner-contract solver ``(org, dir, ctrl) ->
     (t, u, v, patch_id, hit)``, e.g. ``newton_kernel.make_newton()``;
@@ -261,7 +264,8 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
 
     cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
     if cap < R:
-        idx = compact_indices(obj_gate, cap, fill=R)              # (cap,)
+        idx, key = compact_indices_keyed(obj_gate, cap, fill=R)   # (cap,)
+        count_bezier_compaction(key, cap)
         od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
         org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
         t_c, u_c, v_c, pid_c, hit_c = winner_root(org_c, dir_c, ctrl, solver)

@@ -19,11 +19,18 @@ def compact_indices(mask: torch.Tensor, cap: int,
     True lanes beyond ``cap`` are left out (callers count them).  Returns
     int64, ready for indexing.
     """
+    return compact_indices_keyed(mask, cap, fill)[0]
+
+
+def compact_indices_keyed(mask: torch.Tensor, cap: int, fill: int | None = None):
+    """(:func:`compact_indices`, the sorted key it ranks the lanes by):
+    ``~mask`` as int32 in ascending order, so the True lanes' zeros come
+    first and their count is one search for the first 1."""
     n = mask.shape[0]
     if fill is None:
         fill = n
     if cap > n:
         raise ValueError(f"cap {cap} exceeds the mask length {n}")
-    _, idx = torch.sort((~mask).to(torch.int32), stable=True)
+    key, idx = torch.sort((~mask).to(torch.int32), stable=True)
     idx = idx[:cap]
-    return torch.where(mask[idx], idx, fill)
+    return torch.where(mask[idx], idx, fill), key

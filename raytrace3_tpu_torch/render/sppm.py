@@ -18,6 +18,7 @@ import torch
 from ..core.sampling import as_draws
 from ..core.types import Deposits, HitPoints
 from ..geometry.scene import Scene
+from ..utils.trace import bezier_tally, span
 from .deposit import deposit_bruteforce
 from .eye import INIT_R2, MAX_DEPTH, eye_pass
 from .light import emit_photons
@@ -141,23 +142,27 @@ def run_rounds(scene: Scene, rng, n_rounds: int, photons_per_round: int, fold,
     drops = torch.zeros((), dtype=torch.int32, device=dev)
     if not regen:
         for _ in range(n_rounds):
-            org, dir, flux = emit_photons(draws, scene.light_pos, scene.light_color,
-                                          photons_per_round)
-            dep = photon_trace(scene, draws, org, dir, flux, max_depth,
-                               debias_roulette=debias_roulette, newton_fn=newton_fn)
-            dep, dropped = compact_round(dep, deposit_compact_frac)
-            drops = drops + dropped + fold(dep)
+            with span("rt3.walk"):
+                org, dir, flux = emit_photons(draws, scene.light_pos, scene.light_color,
+                                              photons_per_round)
+                dep = photon_trace(scene, draws, org, dir, flux, max_depth,
+                                   debias_roulette=debias_roulette, newton_fn=newton_fn)
+                dep, dropped = compact_round(dep, deposit_compact_frac)
+            with span("rt3.fold"):
+                drops = drops + dropped + fold(dep)
         return torch.tensor(float(n_rounds * photons_per_round), device=dev), drops
 
     pstate = regen_state_init(L, photons_per_round, dev)
     emitted = torch.zeros((L,), dtype=torch.float32, device=dev)
     for _ in range(n_rounds):
-        dep, pstate, e = photon_trace_regen(
-            scene, draws, scene.light_pos, scene.light_color,
-            photons_per_round, pstate, max_depth,
-            debias_roulette=debias_roulette, newton_fn=newton_fn)
-        dep, dropped = compact_round(dep, deposit_compact_frac)
-        drops = drops + dropped + fold(dep)
+        with span("rt3.walk"):
+            dep, pstate, e = photon_trace_regen(
+                scene, draws, scene.light_pos, scene.light_color,
+                photons_per_round, pstate, max_depth,
+                debias_roulette=debias_roulette, newton_fn=newton_fn)
+            dep, dropped = compact_round(dep, deposit_compact_frac)
+        with span("rt3.fold"):
+            drops = drops + dropped + fold(dep)
         emitted = emitted + e
     # Per-light counts agree to within one photon: their mean normalises.
     return emitted.mean(), drops
@@ -182,7 +187,8 @@ def photon_rounds(scene: Scene, rng, hp: HitPoints, n_rounds: int,
     by ``emitted_per_light`` (rounds x photons without regen); a nonzero
     drop count means the compaction or a capped deposit backend lost flux.
     """
-    rs = RoundState(deposit_fn, hp)
+    with span("rt3.prepare"):
+        rs = RoundState(deposit_fn, hp)
     state = rs.state
 
     def fold(dep):
@@ -240,21 +246,28 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
     walk, ``eye_compact_schedule`` the staged eye wavefront (empty: the
     slot wavefront with ``slots`` slots a pixel), ``deposit_compact_frac``
     the deposit compaction, as in the JAX package.  Returns (image (R, 3),
-    stats)."""
-    hp, stats = eye_pass(scene, cam_org, cam_dir, hitpoint_capacity,
-                         max_depth, slots, init_r2, newton_fn=newton_fn,
-                         compact_schedule=eye_compact_schedule)
-    hp, emitted, dep_drops = photon_rounds(
-        photon_scene if photon_scene is not None else scene, rng, hp,
-        n_rounds, photons_per_round, max_depth, update_mode, deposit_fn,
-        newton_fn, debias_roulette=debias_roulette, regen=photon_regen,
-        deposit_compact_frac=deposit_compact_frac)
-    img = estimate_image(hp, cam_org.shape[0], emitted)
+    stats); the stats hold the pass's Bezier compaction tally
+    (``utils.trace.BEZIER_COUNTERS``) beside the drop counters.  Under a
+    profiler the stages are the spans ``rt3.eye``, ``rt3.prepare``,
+    ``rt3.walk`` and ``rt3.fold`` (each round) and ``rt3.estimate``."""
+    with bezier_tally() as tally:
+        with span("rt3.eye"):
+            hp, stats = eye_pass(scene, cam_org, cam_dir, hitpoint_capacity,
+                                 max_depth, slots, init_r2, newton_fn=newton_fn,
+                                 compact_schedule=eye_compact_schedule)
+        hp, emitted, dep_drops = photon_rounds(
+            photon_scene if photon_scene is not None else scene, rng, hp,
+            n_rounds, photons_per_round, max_depth, update_mode, deposit_fn,
+            newton_fn, debias_roulette=debias_roulette, regen=photon_regen,
+            deposit_compact_frac=deposit_compact_frac)
+        with span("rt3.estimate"):
+            img = estimate_image(hp, cam_org.shape[0], emitted)
     stats = dict(stats)
     stats["photons_emitted"] = emitted
     stats["deposits_dropped"] = dep_drops
     stats["mean_r2"] = torch.where(hp.valid, hp.r2, 0.0).sum() / torch.clamp_min(
         hp.valid.sum(dtype=torch.int32), 1)
+    stats.update(tally.fold(img.device))
     return img, stats
 
 
