@@ -5,9 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from ``raytrace3_tpu_torch/csrc/``
-and drives the port's paths: the render pass, the train step, the CLI, the
-stream deposit's pass and the sharded render and train step (phases
+It builds the port's six CUDA kernels and the regen walk's segment
+kernels (``walk.cu``) from ``raytrace3_tpu_torch/csrc/`` and drives the
+port's paths: the render pass, the train step, the CLI, the stream
+deposit's pass and the sharded render and train step (phases
 16-18, in spawned ranks; with more cards the ranks take one each).  The
 render path is the port bench's
 (``bench_torch.py``: ``bench.py``'s configuration, scene ``full``, 512 x
@@ -21,7 +22,7 @@ deposit at tile 256 / chunk 512 / work cap 16384 with 2-D banding and
 merged z windows, Adam on an MSE loss).  Phases, each of which ends the run
 with a non-zero exit when it fails:
 
-  1. the card's name and power limit; build the six kernels, in parallel;
+  1. the card's name and power limit; build the seven sources, in parallel;
   2. the Newton kernel against its plain PyTorch twin on the teapot-bound
      rays of one photon segment at bench shapes, bit for bit, with the open
      (ray, patch) pairs, the rays a block and the queue drains, and its
@@ -39,7 +40,8 @@ with a non-zero exit when it fails:
   5. the render path: the port bench's own measurement
      (``bench_torch.measure`` at ``bench_torch.py``'s defaults: one first
      pass and 4 timed passes), with the kernels' launch counters read around
-     it and the bench's JSON record printed;
+     it (Newton, the tile deposit and the three walk kernels launched) and
+     the bench's JSON record printed;
   6. the lane deposit kernel against its plain twin on one train round
      (14 x 32768 deposits against the 256^2 hit-point layout), the flux held
      to the twin summed in float64, with its launch geometry, items per
@@ -140,6 +142,14 @@ with a non-zero exit when it fails:
      the micro's block deposit; and each sweep row's whole call against
      the same call through its kernel's plain twin (counts exactly, flux to
      DEPOSIT_FLUX_RTOL), its counts also equal across the rows.
+ 24. (run after phase 2) the regen walk's three kernels (``walk.cu``:
+     ``walk_refill``, ``walk_bezier``, ``walk_shade``) against their plain
+     twin, the op code of ``photon.regen_segment_plain``, on the main
+     path's round at 131,072 lanes (the bench's) and at 1,048,576: 14
+     segments, each from the twin's carry on the same draws, every lane of
+     the carry and the record bit for bit; then each kernel's device time
+     beside its byte bound, the segment's least time, and a whole segment
+     through the kernels and through the twin.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -230,6 +240,11 @@ NEWTON_START_OPS, NEWTON_ITER_OPS = 150, 566
 #: patch, restart) lane, 543 operations an iteration; printed beside the
 #: new one.
 NEWTON_V1_GATE_OPS, NEWTON_V1_ITER_OPS = 120, 543
+#: Phase 24: the regen walk's lanes a round on the main path (the bench's
+#: 131,072 photons, and 1,048,576, the bigrounds benchmark cell's round),
+#: and the segment whose kernels are timed (origins spread over the room).
+WALK_LANES = (131072, 1048576)
+WALK_TIMED_SEGMENT = 3
 #: Phase 11: the CLI's passes at the reference1024 preset, and the card's
 #: resume check: a 64^2 render resumed from a one-pass checkpoint against
 #: the same render run straight.  The walks are deterministic on the card;
@@ -393,10 +408,10 @@ def make_pass(settings: dict, device, deposit=None, newton_fn=None):
 
 
 SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu",
-           "deposit_block.cu", "deposit_stream.cu")
+           "deposit_block.cu", "deposit_stream.cu", "walk.cu")
 #: The kernels line's rows, each a ``CudaKernel``'s name (``ops/cuda_build.KERNELS``).
 KERNEL_ROWS = ("newton", "deposit_tile", "deposit_lane", "deposit_lane_bwd",
-               "deposit_block", "deposit_stream")
+               "deposit_block", "deposit_stream", "walk_refill", "walk_bezier", "walk_shade")
 
 
 def zero_counters() -> None:
@@ -476,7 +491,7 @@ def phase_build(card: str) -> None:
         for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
-    print(f"[1] all {len(SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s; card: {card}")
+    print(f"[1] all {len(SOURCES)} sources built in {time.perf_counter() - t0:.1f} s; card: {card}")
 
 
 def phase_newton(card: str, device) -> dict:
@@ -554,6 +569,103 @@ def phase_newton(card: str, device) -> dict:
     return row
 
 
+def walk_differences(got, want) -> dict:
+    """Lanes where two segments' (carry, record) differ, by field (NaN
+    equal to NaN; ``rr_off`` and ``emitted`` as elements)."""
+    names = ("pos", "dir", "flux", "alive", "depth", "rr_off", "emitted", "record pos",
+             "record n", "record flux", "record valid")
+    out = {}
+    for name, g, w in zip(names, got[0] + got[1], want[0] + want[1]):
+        ne = g != w
+        if g.is_floating_point():
+            ne &= ~(torch.isnan(g) & torch.isnan(w))
+        out[name] = int(ne.reshape(ne.shape[0], -1).any(1).sum()) if ne.dim() else int(ne)
+    return out
+
+
+def phase_walk(card: str, device) -> tuple:
+    """Phase 24: the regen walk's kernels (``ops/walk_kernel``) against
+    their plain twin (``photon.regen_segment_plain``) on the main path's
+    round at each of WALK_LANES lanes: 14 segments, each from the twin's
+    carry on the same draws (the five uniforms ``regen_segment`` draws,
+    from one generator), through the Newton kernel on both sides; every
+    lane of the carry and the record bit for bit.  Then the three kernels'
+    device times on segment WALK_TIMED_SEGMENT beside their byte bounds
+    (``walk_kernel.kernel_bytes``; their operations, a few hundred a lane,
+    take under a tenth of that), the segment's least time
+    (``segment_bytes``) and the whole segment through the kernels and
+    through the twin.  Returns the kernels line's three rows (the render
+    round's)."""
+    from raytrace3_tpu_torch.core.sampling import TWO_PI, GeneratorDraws
+    from raytrace3_tpu_torch.geometry.bezier import solve_gated
+    from raytrace3_tpu_torch.ops import walk_kernel
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render import photon
+    from raytrace3_tpu_torch.render.driver import build_scene
+    from raytrace3_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(**BENCH)
+    scene = build_scene(cfg, device).replace(
+        bezier_compact_frac=cfg.bezier_compact_frac_photon)
+    newton = make_newton(cfg.newton_iters, RESTARTS)
+    fetch = photon._material_lanes(scene)
+    lp, lc = scene.light_pos, scene.light_color
+    L, segs, debias = lp.shape[0], cfg.max_depth + 1, cfg.debias_roulette
+    ws = walk_kernel.WalkScene(scene, fetch.table, lp, lc)
+    replaces = "none: the XLA-fused segment of raytrace3_tpu/render/photon.py, regen_segment"
+    rows = None
+    for n in WALK_LANES:
+        draws = GeneratorDraws(torch.Generator(device=device).manual_seed(24))
+        carry = photon.regen_state_init(L, n // L, device) + (
+            torch.zeros((L,), dtype=torch.float32, device=device),)
+        bad, deposits = {}, 0
+        for k in range(segs):
+            uni = (draws.uniform((n,), -1.0, 1.0), draws.uniform((n,), 0.0, TWO_PI),
+                   draws.uniform((n,)), draws.uniform((n,)), draws.uniform((n,)))
+            got = ws.segment(uni, carry, segs, debias, newton)
+            want = photon.regen_segment_plain(scene, fetch, uni, lp, lc, carry, segs, debias,
+                                              newton)
+            for f, v in walk_differences(got, want).items():
+                bad[f] = bad.get(f, 0) + v
+            deposits += int(want[1][3].sum())
+            if k == WALK_TIMED_SEGMENT:
+                timed = (uni, carry)
+            carry = want[0]
+        print(f"[24] walk, {n} lanes x {segs} segments, kernels against the plain twin from "
+              f"the twin's carry: lanes that differ {bad}; deposits {deposits}")
+        if any(bad.values()) or deposits < n:
+            raise SystemExit("phase 24 failed: the walk kernels disagree with their plain twin")
+        uni, carry = timed
+        w = walk_kernel.SegmentLanes(ws, uni, carry, segs, debias)
+        w.refill()
+        idx, d_c, hits = solve_gated(w.o_r, w.d_r, scene.bezier.ctrl, w.gate, newton,
+                                     scene.bezier_compact_frac)
+        rays = hits[0].shape[0]
+        solved = rays if idx is None else int((idx < n).sum())
+        bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, ws.ctrl)
+        times = {"walk_refill": kernel_times(w.refill), "walk_bezier": kernel_times(bez),
+                 "walk_shade": kernel_times(w.shade)}
+        seg_ms = cuda_ms(lambda: ws.segment(uni, carry, segs, debias, newton), 5)
+        plain_ms = cuda_ms(lambda: photon.regen_segment_plain(
+            scene, fetch, uni, lp, lc, carry, segs, debias, newton), 3)
+        nbytes = walk_kernel.kernel_bytes(n, rays, solved, L)
+        here = {name: kernel_row(name, "walk.cu", replaces, 0.0, times[name], plain_ms, 0,
+                                 nbytes[name]) for name in times}
+        least_ms, _ = bound(0, walk_kernel.segment_bytes(n, L))
+        three = sum(r["ms"] for r in here.values())
+        print(f"[24] walk, {n} lanes, segment {WALK_TIMED_SEGMENT} ({solved} of {rays} "
+              f"compacted slots hold a ray): " + "; ".join(
+                  f"{k} {r['ms'] * 1e3:.2f} us device, {r['call_ms'] * 1e3:.1f} us a call, "
+                  f"bound {r['bound_ms'] * 1e3:.2f} us ({r['ms'] / r['bound_ms']:.2f}x)"
+                  for k, r in here.items()) + f" ({card})")
+        print(f"[24] walk, {n} lanes: the three {three * 1e3:.2f} us = {three / least_ms:.2f}x "
+              f"the segment's least time {least_ms * 1e3:.2f} us "
+              f"({walk_kernel.segment_bytes(n, L) / n:.0f} bytes a lane); a segment through "
+              f"the kernels {seg_ms:.3f} ms, through the twin {plain_ms:.3f} ms ({card})")
+        rows = rows or here
+    return tuple(rows.values())
+
+
 def bench_hitpoints(device):
     """(cfg, scene, hit points, eye stats) of the bench's 512^2 eye pass."""
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
@@ -568,7 +680,7 @@ def bench_hitpoints(device):
     org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
                       cfg.init_r2, newton_fn=make_newton(cfg.newton_iters, RESTARTS),
-                      compact_schedule=cfg.eye_compact_schedule)
+                      compact_schedule=cfg.eye_compact_schedule, grow=True)
     return cfg, scene, hp, st
 
 
@@ -664,7 +776,8 @@ def phase_main(card: str, device) -> dict:
           and record["pallas_newton"] and record["card"] == card
           and tuple(img.shape) == (512, 512, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-          and launches["newton"] > 0 and launches["deposit_tile"] > 0)
+          and launches["newton"] > 0 and launches["deposit_tile"] > 0
+          and all(launches[k] > 0 for k in ("walk_refill", "walk_bezier", "walk_shade")))
     if not ok:
         raise SystemExit("phase 5 failed: the main path's result or launches are wrong")
     return launches
@@ -968,7 +1081,8 @@ def preset_round(device) -> dict:
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
-                      cfg.init_r2, newton_fn=newton, compact_schedule=cfg.eye_compact_schedule)
+                      cfg.init_r2, newton_fn=newton, compact_schedule=cfg.eye_compact_schedule,
+                      grow=True)
     photon_scene = scene.replace(bezier_compact_frac=cfg.bezier_compact_frac_photon)
     gen = torch.Generator(device=device).manual_seed(3)
     deps, _, _ = photon_trace_regen(photon_scene, gen, scene.light_pos, scene.light_color,
@@ -2036,6 +2150,7 @@ def main() -> int:
     phase_build(card)
     newton = phase_newton(card, device)
     deps = newton.pop("_round")
+    walk = phase_walk(card, device)
     deposit = phase_deposit(card, device, deps)
     phase_small(device)
     render = phase_main(card, device)
@@ -2073,7 +2188,7 @@ def main() -> int:
              "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun,
              "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse,
              "tools": tools, "finish": finish}
-    rows = (newton, deposit, lane, lane_bwd, block, stream)
+    rows = (newton, deposit, lane, lane_bwd, block, stream) + walk
     for row in rows:
         name = row["name"]
         row["launches_by_path"] = {p: n[name] for p, n in paths.items()}

@@ -249,7 +249,6 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
 
     Returns (t, hit, u, v, n): t (R,), hit (R,), u/v (R,), n (R, 3).
     """
-    R = org.shape[0]
     ctrl = obj.ctrl
     pmin, pmax = aabb_from_points(ctrl.reshape(obj.num_patches, 16, 3))
     obj_gate = slab_test(org, dir, pmin.amin(0), pmax.amax(0))
@@ -262,16 +261,13 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
         n = torch.where(dot(n, d)[..., None] > 0.0, -n, n)
         return normalize(n)
 
-    cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
-    if cap < R:
-        idx, key = compact_indices_keyed(obj_gate, cap, fill=R)   # (cap,)
-        count_bezier_compaction(key, cap)
-        od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
-        org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
-        t_c, u_c, v_c, pid_c, hit_c = winner_root(org_c, dir_c, ctrl, solver)
-        n_c = winner_normal(dir_c, u_c, v_c, pid_c)
-        rows = torch.cat([t_c[:, None], u_c[:, None], v_c[:, None],
-                          hit_c.to(dir.dtype)[:, None], n_c], 1)  # (cap, 7)
+    R = org.shape[0]
+    idx, dir_s, (t_s, u_s, v_s, pid_s, hit_s) = solve_gated(org, dir, ctrl, obj_gate, solver,
+                                                            compact_frac)
+    n_s = winner_normal(dir_s, u_s, v_s, pid_s)
+    if idx is not None:
+        rows = torch.cat([t_s[:, None], u_s[:, None], v_s[:, None],
+                          hit_s.to(dir.dtype)[:, None], n_s], 1)  # (cap, 7)
         # Misses read t = MAX_DIST, n = (0, 0, 1); row R takes the fill
         # slots and is cut off.
         out = torch.zeros((R + 1, 7), dtype=dir.dtype, device=dir.device)
@@ -282,11 +278,31 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
         hit = out[:R, 3] > 0.5
         n = out[:R, 4:7]
     else:
-        t_best, u_best, v_best, pid, hit = winner_root(org, dir, ctrl, solver)
-        n = winner_normal(dir, u_best, v_best, pid)
+        t_best, u_best, v_best, hit, n = t_s, u_s, v_s, hit_s, n_s
 
     hit = hit & obj_gate
     return torch.where(hit, t_best, MAX_DIST), hit, u_best, v_best, n
+
+
+def solve_gated(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor, gate: torch.Tensor,
+                solver, compact_frac: float):
+    """The winner-contract solve of the rays that pass the object gate:
+    (idx, the solved rays' directions, (t, u, v, patch_id, hit)).
+
+    ``compact_frac`` < 1 gathers the gated rays, in order, into
+    ``max(8, int(R * compact_frac))`` lanes (``idx``: each lane's ray, R
+    for a fill lane) and solves those; otherwise every ray is solved and
+    ``idx`` is None.  Inside a pass's tally the compaction adds its gated
+    count."""
+    R = org.shape[0]
+    cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
+    if cap >= R:
+        return None, dir, winner_root(org, dir, ctrl, solver)
+    idx, key = compact_indices_keyed(gate, cap, fill=R)            # (cap,)
+    count_bezier_compaction(key, cap)
+    od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
+    org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
+    return idx, dir_c, winner_root(org_c, dir_c, ctrl, solver)
 
 
 def load_bpt(path: str, scale: float = 1.0, transform: np.ndarray | None = None,

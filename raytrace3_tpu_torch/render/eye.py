@@ -14,7 +14,10 @@ and specular lobes continue.  Two schedules:
   buffer, and the hit points scatter once at the end.
 
 A continuation that finds no slot, a ray beyond a stage's width and a hit
-point beyond the buffer are dropped and counted in ``dropped``.
+point beyond the buffer are dropped and counted in ``dropped``.  With
+``grow`` the staged wavefront drops no ray at a stage: a stage whose
+survivors outnumber its width is widened to hold them (one host read of
+the survivors a compaction), and the lanes added are ``eye_grown_lanes``.
 """
 
 from __future__ import annotations
@@ -71,22 +74,25 @@ def eye_stage_widths(n_rays: int, schedule: tuple,
 def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
              capacity: int, max_depth: int = MAX_DEPTH, slots: int = 1,
              init_r2: float = INIT_R2, newton_fn=None, pixel_offset: int = 0,
-             compact_schedule: tuple = ()):
-    """Trace camera rays; return (HitPoints, {"count", "dropped"}).
+             compact_schedule: tuple = (), grow: bool = False):
+    """Trace camera rays; return (HitPoints, {"count", "dropped",
+    "eye_grown_lanes"}).
 
     ``slots``: K ray slots a pixel (K = 1 suffices for scenes whose
     materials have at most one specular lobe, every reference scene).
     ``compact_schedule``: ((segment, frac), ...): at the start of each
     listed segment (>= 1) the surviving rays are gathered into a buffer of
     about ``frac * R`` lanes (:func:`eye_stage_widths`); it needs ``slots=1``.  Empty:
-    the slot wavefront.
+    the slot wavefront.  ``grow``: a stage whose survivors outnumber its
+    width takes ``min(incoming width, survivors rounded up to 128)`` lanes
+    instead of dropping the rest (JAX's contract is ``grow=False``).
     """
     if compact_schedule:
         if slots != 1:
             raise ValueError("compact_schedule requires slots=1")
         return _eye_pass_compact(scene, org, dir, capacity, max_depth,
                                  init_r2, newton_fn, pixel_offset,
-                                 compact_schedule)
+                                 compact_schedule, grow)
     return _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
                            newton_fn, pixel_offset, slots)
 
@@ -196,11 +202,12 @@ def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
         dropped = dropped + n_dropped + (count + n_new - new_count)
         count = new_count
     return _hitpoints(buf[:capacity], capacity, init_r2), {"count": count,
-                                                           "dropped": dropped}
+                                                           "dropped": dropped,
+                                                           "eye_grown_lanes": 0}
 
 
 def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
-                      newton_fn, pixel_offset, schedule):
+                      newton_fn, pixel_offset, schedule, grow: bool = False):
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
     fetch_mat = _eye_material_lanes(scene)
@@ -216,11 +223,19 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
         prev = seg
 
     all_rows = []
+    grown = 0
     for n_segs, w in eye_stage_widths(R, schedule, max_depth):
         cur_w = lanes[0].shape[0]
         if w < cur_w:
             o, d, wgt, px, act = lanes
             n_act = act.sum(dtype=torch.int32)
+            if grow:
+                n = int(n_act)
+                if n > w:
+                    wide = min(cur_w, -(-n // 128) * 128)
+                    grown += wide - w
+                    w = wide
+        if w < cur_w:
             idx = compact_indices(act, w, fill=cur_w)
             ok = idx < cur_w
             lane_rows = torch.cat([o, d, wgt, px.to(dtype)[:, None],
@@ -246,4 +261,4 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
     n_valid = valid.sum(dtype=torch.int32)
     count = torch.clamp_max(n_valid, capacity)
     dropped = dropped + torch.clamp_min(n_valid - capacity, 0)
-    return hp, {"count": count, "dropped": dropped}
+    return hp, {"count": count, "dropped": dropped, "eye_grown_lanes": grown}

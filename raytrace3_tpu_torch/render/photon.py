@@ -10,7 +10,10 @@ probability (Obj.h:30-45).  Two walks:
   ``max_depth + 1`` segments (:func:`static_segment` each);
 * ``photon_trace_regen``, the persistent-lane walk: every segment first
   refills dead lanes with fresh photons from the lights, round-robin
-  (:func:`regen_segment` each).
+  (:func:`regen_segment` each).  On CUDA tensors the segment runs as the
+  kernels of ``ops/walk_kernel.py`` around the Bezier compaction and Newton;
+  on CPU tensors, and where autograd would reach an input, as the plain op
+  code (:func:`regen_segment_plain`).
 
 :func:`compact_deposits` gathers a round's valid deposits into a smaller
 buffer before the deposit op.
@@ -22,6 +25,7 @@ cosine-hemisphere uniforms (N each).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -33,11 +37,13 @@ from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
 from ..ops.compact import compact_indices
 from ..ops.onehot import onehot_f32, take_rows
+from ..ops import walk_kernel
 from .eye import MAX_DEPTH
 
 
 def _material_lanes(scene: Scene):
-    """Per-lane fetch of [diff_p, refl_p, refr_p, is_diff, refrn]."""
+    """Per-lane fetch of [diff_p, refl_p, refr_p, is_diff, refrn]; the
+    (objects, 5) table it reads is its ``table``."""
     diff_p, refl_p, refr_p = scene.materials.powers()
     tbl = torch.stack([diff_p, refl_p, refr_p,
                        scene.materials.is_diff().to(torch.float32),
@@ -47,6 +53,7 @@ def _material_lanes(scene: Scene):
         m = take_rows(tbl, obj)                           # (R, 5)
         return m[:, 0], m[:, 1], m[:, 2], m[:, 3] > 0.5, m[:, 4]
 
+    fetch.table = tbl
     return fetch
 
 
@@ -70,13 +77,10 @@ def photon_trace(scene: Scene, rng, org: torch.Tensor, dir: torch.Tensor,
     return Deposits(pos=pos, n=n, flux=f, valid=valid)
 
 
-def _continue(draws, rec, d, f, dp, rp, rr, rn, debias_roulette: bool):
-    """Roulette one continuation (Raytracer.h:162-207): (new dir, new
-    flux); draws the roulette uniform, then the two hemisphere uniforms."""
-    N = d.shape[0]
-    branch = roulette(draws.uniform((N,)), dp, rp, rr)
-    u1 = draws.uniform((N,))
-    u2 = draws.uniform((N,))
+def _continue(ur, u1, u2, rec, d, f, dp, rp, rr, rn, debias_roulette: bool):
+    """Roulette one continuation (Raytracer.h:162-207) from the roulette
+    uniform ``ur`` and the two hemisphere uniforms: (new dir, new flux)."""
+    branch = roulette(ur, dp, rp, rr)
     d_diff = cosine_hemisphere(u1, u2, rec.n)
     d_refl = normalize(reflect(d, rec.n))
     eta = eta_from_refrn(rn, rec.inside)
@@ -108,7 +112,9 @@ def static_segment(scene: Scene, fetch_mat, draws, carry,
     dp, rp, rr, isd, rn = fetch_mat(obj)
     hit = rec.hit & alive
     record = (rec.pos, rec.n, f, hit & isd)
-    new_d, new_f = _continue(draws, rec, d, f, dp, rp, rr, rn, debias_roulette)
+    N = o.shape[0]
+    ur, u1, u2 = (draws.uniform((N,)) for _ in range(3))
+    new_d, new_f = _continue(ur, u1, u2, rec, d, f, dp, rp, rr, rn, debias_roulette)
     return (rec.pos, new_d, new_f, hit), record
 
 
@@ -144,13 +150,16 @@ def photon_trace_regen(scene: Scene, rng, light_pos: torch.Tensor,
     if state is None:
         state = regen_state_init(L, n_photons, dev)
     fetch_mat = _material_lanes(scene)
+    walk = None
+    if dev.type == "cuda" and not _grad_reaches(scene, light_pos, light_color):
+        walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
 
     carry = tuple(state) + (torch.zeros((L,), dtype=torch.float32, device=dev),)
     records = []
     for _ in range(segs):
         carry, rec = regen_segment(scene, fetch_mat, draws, light_pos,
                                    light_color, carry, segs,
-                                   debias_roulette, newton_fn)
+                                   debias_roulette, newton_fn, walk=walk)
         records.append(rec)
     *state, emitted = carry
     pos, n, flux, valid = (torch.cat(x, 0) for x in zip(*records))
@@ -160,22 +169,61 @@ def photon_trace_regen(scene: Scene, rng, light_pos: torch.Tensor,
 
 def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
                   light_color: torch.Tensor, carry, segs: int,
-                  debias_roulette: bool = False, newton_fn=None):
+                  debias_roulette: bool = False, newton_fn=None, walk=None):
     """One segment of the walk: refill dead lanes, intersect, record a
     deposit, roulette one continuation.
 
     ``carry`` = (org, dir, flux, alive, depth, rr_offset, emitted), the JAX
     walk's scan carry; ``fetch_mat`` from :func:`_material_lanes`.  Returns
-    (new carry, deposit record (pos, n, flux, valid)).
+    (new carry, deposit record (pos, n, flux, valid)).  Draws its five
+    uniforms first, in the module's order.  CUDA lanes run the kernels
+    (``ops/walk_kernel.WalkScene.segment``) unless autograd would reach an
+    input; the rest run :func:`regen_segment_plain`.  ``walk``: the
+    scene's side of the kernels, which :func:`photon_trace_regen` builds
+    once a walk where autograd reaches neither the scene nor the lights
+    (None: decided and built here).
     """
+    N = carry[0].shape[0]
+    uniforms = (draws.uniform((N,), -1.0, 1.0), draws.uniform((N,), 0.0, TWO_PI),
+                draws.uniform((N,)), draws.uniform((N,)), draws.uniform((N,)))
+    if carry[0].is_cuda and not _grad_reaches(carry):
+        if walk is None and not _grad_reaches(scene, light_pos, light_color):
+            walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
+        if walk is not None:
+            return walk.segment(uniforms, carry, segs, debias_roulette, newton_fn)
+    return regen_segment_plain(scene, fetch_mat, uniforms, light_pos, light_color, carry,
+                               segs, debias_roulette, newton_fn)
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif dataclasses.is_dataclass(x):
+        for fld in dataclasses.fields(x):
+            yield from _tensors(getattr(x, fld.name))
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def _grad_reaches(*inputs) -> bool:
+    """Whether autograd records and some input tensor requires grad (the
+    kernels have no backward)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(inputs))
+
+
+def regen_segment_plain(scene: Scene, fetch_mat, uniforms, light_pos: torch.Tensor,
+                        light_color: torch.Tensor, carry, segs: int,
+                        debias_roulette: bool = False, newton_fn=None):
+    """:func:`regen_segment` as PyTorch operators on any device, from the
+    segment's drawn (z, phi, roulette, u1, u2)."""
     o, d, f, alive, depth, rr_off, emitted = carry
+    z, phi, ur, u1, u2 = uniforms
     L = light_pos.shape[0]
     N = o.shape[0]
     # Refill dead lanes with fresh photons, lights assigned round-robin.
     need = ~alive
     n_need = need.sum(dtype=torch.int32)
-    z = draws.uniform((N,), -1.0, 1.0)
-    phi = draws.uniform((N,), 0.0, TWO_PI)
     ed = uniform_sphere(z, phi)                            # Light.h:9 law
     if L == 1:
         eo = light_pos[0].expand(N, 3)
@@ -199,7 +247,7 @@ def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
     obj = torch.clamp(rec.obj_id, 0, scene.n_objects - 1)
     dp, rp, rr, isd, rn = fetch_mat(obj)
     record = (rec.pos, rec.n, f, rec.hit & isd)
-    new_d, new_f = _continue(draws, rec, d, f, dp, rp, rr, rn, debias_roulette)
+    new_d, new_f = _continue(ur, u1, u2, rec, d, f, dp, rp, rr, rn, debias_roulette)
 
     depth = depth + 1
     alive = rec.hit & (depth < segs)

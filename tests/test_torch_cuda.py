@@ -907,3 +907,112 @@ def test_one_rank_sharded_pass_is_the_pass_on_the_card(cuda_device):
         assert torch.equal(img, want), ring
         assert int(st["dropped"]) == 0 and int(st["deposits_dropped"]) == 0
     assert newton_kernel.KERNEL.launches > before[0] and deposit_kernel.KERNEL.launches > before[1]
+
+
+#: A second light for the walk kernels' round-robin refill.
+WALK_LIGHTS2 = ([[50.0, 60.0, 85.0], [30.0, 50.0, 120.0]],
+                [[2500.0] * 3, [1000.0, 2000.0, 2000.0]])
+
+
+def walk_pairs(device, n_lights=1, debias=False, n=32768, segs=14, seed=7, scene="full"):
+    """The regen walk's ``segs`` segments through the kernels
+    (``walk_kernel.WalkScene.segment``) and through the plain twin
+    (``photon.regen_segment_plain``), each from the twin's carry and on the
+    same draws, on ``scene`` (``full`` at the photon pass's compaction):
+    yields (carry in, kernels' (carry, record), twin's (carry, record))."""
+    from raytrace3_tpu_torch.render import photon
+    from raytrace3_tpu_torch.ops import walk_kernel
+    from raytrace3_tpu_torch.scenes import get_scene
+
+    scene = get_scene(scene, atlas_res=64, device=device).replace(bezier_compact_frac=0.05)
+    if n_lights == 1:
+        lp, lc = scene.light_pos, scene.light_color
+    else:
+        lp, lc = (torch.tensor(x, device=device) for x in WALK_LIGHTS2)
+    fetch = photon._material_lanes(scene)
+    newton = newton_kernel.make_newton(10, 8)
+    carry = photon.regen_state_init(n_lights, n // n_lights, device) + (
+        torch.zeros((n_lights,), dtype=torch.float32, device=device),)
+    walk = walk_kernel.WalkScene(scene, fetch.table, lp, lc)
+    g = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda lo=0.0, hi=1.0: torch.rand((n,), generator=g, device=device) * (hi - lo) + lo
+    for _ in range(segs):
+        uni = (draw(-1.0, 1.0), draw(0.0, 2 * np.pi), draw(), draw(), draw())
+        got = walk.segment(uni, carry, segs, debias, newton)
+        want = photon.regen_segment_plain(scene, fetch, uni, lp, lc, carry, segs, debias,
+                                          newton)
+        yield carry, got, want
+        carry = want[0]
+
+
+def walk_differences(got, want) -> dict:
+    """Lanes where the kernels' segment and the twin's differ, by field:
+    the discrete fields (deposit valid, alive, depth) and the floats
+    bit for bit; then the floats' largest relative difference."""
+    (gc, gr), (wc, wr) = got, want
+    out = {}
+    for name, g, w in (("pos", gr[0], wr[0]), ("n", gr[1], wr[1]), ("flux", gr[2], wr[2]),
+                       ("valid", gr[3], wr[3]), ("dir", gc[1], wc[1]), ("new flux", gc[2], wc[2]),
+                       ("alive", gc[3], wc[3]), ("depth", gc[4], wc[4])):
+        ne = (g != w).reshape(g.shape[0], -1).any(1) & ~(torch.isnan(g) & torch.isnan(w)).reshape(
+            g.shape[0], -1).all(1)
+        out[name] = int(ne.sum())
+        if g.is_floating_point():
+            rel = (g - w).abs() / w.abs().clamp_min(1e-6)
+            out[name + " max rel"] = float(torch.nan_to_num(rel, nan=0.0).max())
+    out["rr_off"] = int(gc[5] != wc[5])
+    out["emitted"] = int((gc[6] != wc[6]).sum())
+    return out
+
+
+@pytest.mark.parametrize("n_lights, debias, scene", [(1, False, "full"), (2, False, "full"),
+                                                     (1, True, "full"),
+                                                     (1, False, "cornell_specular")],
+                         ids=["one-light", "two-lights", "debias", "no-bezier"])
+def test_walk_kernels_match_plain(cuda_device, n_lights, debias, scene):
+    """Fourteen segments of the regen walk: the kernels against the plain
+    twin on the card, from the same carry and draws.  The kernels round
+    every operation as the twin's operators do on the card (-fmad=false,
+    the same operation order and sums), so every lane of the record and
+    the carry, and the refill counters, equal the twin's bit for bit."""
+    from raytrace3_tpu_torch.ops import walk_kernel
+
+    before = {k: k_.launches for k, k_ in (("refill", walk_kernel.REFILL),
+                                           ("bezier", walk_kernel.BEZIER),
+                                           ("shade", walk_kernel.SHADE))}
+    lanes = deposits = 0
+    for carry, got, want in walk_pairs(cuda_device, n_lights, debias, scene=scene):
+        torch.cuda.synchronize()
+        diff = walk_differences(got, want)
+        assert not any(diff.values()), diff
+        lanes += carry[0].shape[0]
+        deposits += int(want[1][3].sum())
+    assert deposits > lanes // 10
+    assert walk_kernel.REFILL.launches == before["refill"] + 14
+    assert walk_kernel.SHADE.launches == before["shade"] + 14
+    assert walk_kernel.BEZIER.launches == before["bezier"] + (14 if scene == "full" else 0)
+
+
+def test_walk_takes_the_op_path_under_autograd(cuda_device):
+    """With the atlas requiring grad, a regen round on the card launches no
+    walk kernel and its gradient reaches the atlas; without grad the same
+    round goes through the kernels."""
+    from raytrace3_tpu_torch.ops import walk_kernel
+    from raytrace3_tpu_torch.render import photon
+    from raytrace3_tpu_torch.scenes import full
+
+    scene = full(atlas_res=32, device=cuda_device).replace(bezier_compact_frac=0.05)
+    newton = newton_kernel.make_newton(10, 8)
+    run = lambda s: photon.photon_trace_regen(
+        s, torch.Generator(device=cuda_device).manual_seed(3), s.light_pos, s.light_color,
+        4096, None, 5, newton_fn=newton)
+    before = walk_kernel.SHADE.launches
+    atlas = scene.atlas.clone().requires_grad_(True)
+    dep, _, _ = run(scene.replace(atlas=atlas))
+    assert walk_kernel.SHADE.launches == before
+    dep.flux[dep.valid].sum().backward()
+    assert float(atlas.grad.abs().sum()) > 0
+    with torch.no_grad():
+        dep_k, _, _ = run(scene.replace(atlas=atlas))
+    assert walk_kernel.SHADE.launches == before + 6
+    assert int(dep_k.valid.sum()) > 4096

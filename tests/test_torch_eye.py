@@ -197,3 +197,60 @@ def test_k_slots_refuse_a_compact_schedule():
     with pytest.raises(ValueError, match="slots=1"):
         eye.eye_pass(None, torch.zeros(4, 3), torch.zeros(4, 3), 8, slots=2,
                      compact_schedule=((1, 0.5),))
+
+
+def _port_eye(name: str, grow: bool):
+    """The port's staged eye pass alone on ``full`` at 32 x 32 (the matching
+    test's scene and rays), Newton kernel contract at 8 restarts."""
+    js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.09)
+    org, d = j_emit_rays(jscenes.reference_camera(32, 32))
+    return eye.eye_pass(port_scene(js), torch.as_tensor(np.array(org)),
+                        torch.as_tensor(np.array(d)), int(1024 * 1.3),
+                        newton_fn=make_newton(), compact_schedule=SCHEDULES[name], grow=grow)
+
+
+def test_a_growing_stage_drops_no_ray():
+    """The clipping schedule, whose stages overflow (JAX drops rays there):
+    with ``grow`` every survivor keeps a lane, so nothing is dropped, the
+    lanes added are counted, and more hit points are stored than without."""
+    hp_c, st_c = _port_eye("clipping", grow=False)
+    hp_g, st_g = _port_eye("clipping", grow=True)
+    assert int(st_c["dropped"]) > 0 and st_c["eye_grown_lanes"] == 0
+    assert int(st_g["dropped"]) == 0
+    assert st_g["eye_grown_lanes"] > 0 and st_g["eye_grown_lanes"] % 128 == 0
+    assert int(st_g["count"]) > int(st_c["count"])
+
+
+def test_growing_changes_nothing_where_no_stage_overflows():
+    """The bench schedule clips no survivor at this size: with ``grow`` the
+    widths, the hit points and the counters are those without."""
+    hp_c, st_c = _port_eye("bench", grow=False)
+    hp_g, st_g = _port_eye("bench", grow=True)
+    assert st_g["eye_grown_lanes"] == 0 and int(st_g["dropped"]) == 0
+    for k in ("count", "dropped"):
+        assert int(st_g[k]) == int(st_c[k]), k
+    for f in ("pos", "n", "wgt", "pixel", "valid", "r2", "tao", "nphot"):
+        assert torch.equal(getattr(hp_g, f), getattr(hp_c, f)), f
+
+
+def test_render_pass_grows_the_staged_eye(monkeypatch):
+    """Every render pass asks the eye to grow rather than drop, and reports
+    the lanes it added."""
+    from raytrace3_tpu_torch.render import sppm
+    from raytrace3_tpu_torch.render.camera import emit_rays
+    from raytrace3_tpu_torch.scenes import cornell_specular, reference_camera
+
+    seen = []
+    real = sppm.eye_pass
+
+    def spy(*a, **k):
+        seen.append(k.get("grow"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(sppm, "eye_pass", spy)
+    scene = cornell_specular(atlas_res=16, device="cpu")
+    org, d = emit_rays(reference_camera(32, 32, device="cpu"))
+    _, st = sppm.render_pass(scene, org, d, torch.Generator().manual_seed(0), 1536, 1, 64,
+                             max_depth=3, photon_regen=True, eye_compact_schedule=((1, 0.02),))
+    assert seen == [True]
+    assert int(st["dropped"]) == 0 and st["eye_grown_lanes"] > 0

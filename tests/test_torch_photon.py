@@ -27,6 +27,7 @@ from raytrace3_tpu.render import light as jlight
 from raytrace3_tpu.render import photon as jphoton
 
 from raytrace3_tpu_torch.core.sampling import ReplayDraws
+from raytrace3_tpu_torch.ops.cuda_build import launch_counts, launches_since
 from raytrace3_tpu_torch.ops.newton_kernel import make_newton
 from raytrace3_tpu_torch.render import light, photon
 from raytrace3_tpu_torch.testing import MAX_FLIPS, pinned_segments
@@ -38,26 +39,44 @@ LIGHTS2 = ([[50.0, 60.0, 85.0], [30.0, 50.0, 120.0]],
            [[2500.0] * 3, [1000.0, 2000.0, 2000.0]])
 
 
-def _round_matches_jax(light_pos, light_color, n_photons, seed):
+def _round_matches_jax(light_pos, light_color, n_photons, seed, debias=False):
+    """A round through ``photon.regen_segment``, the walk's wrapper, which
+    runs its plain twin on CPU tensors (no walk kernel launches), held to
+    JAX's round."""
     js = jscenes.full(atlas_res=32).replace(bezier_compact_frac=0.05)
     lp, lc = jnp.asarray(light_pos, jnp.float32), jnp.asarray(light_color, jnp.float32)
     key = jax.random.key(seed)
     with jax_walk_steps() as steps:
         dep_j, st_j, em_j = jax.jit(lambda k: jphoton.photon_trace_regen(
-            js, k, lp, lc, n_photons, None, SEGS - 1,
+            js, k, lp, lc, n_photons, None, SEGS - 1, debias_roulette=debias,
             newton_fn=make_newton_pallas(interpret=True)))(key)
         jax.block_until_ready(dep_j)
     assert len(steps["photon"]) == SEGS
 
     ps = port_scene(js)
     draws = ReplayDraws(regen_round_draws(key, lp.shape[0] * n_photons, SEGS))
-    with pinned_segments(photon_steps=steps["photon"]) as report:
-        dep_p, st_p, em_p = photon.photon_trace_regen(
-            ps, draws, torch.as_tensor(np.array(lp)), torch.as_tensor(np.array(lc)),
-            n_photons, None, SEGS - 1, newton_fn=make_newton())
+    plain = photon.regen_segment_plain
+    twin_calls = []
+
+    def counted(*a, **k):
+        twin_calls.append(1)
+        return plain(*a, **k)
+
+    launches = launch_counts()
+    photon.regen_segment_plain = counted
+    try:
+        with pinned_segments(photon_steps=steps["photon"]) as report:
+            dep_p, st_p, em_p = photon.photon_trace_regen(
+                ps, draws, torch.as_tensor(np.array(lp)), torch.as_tensor(np.array(lc)),
+                n_photons, None, SEGS - 1, debias_roulette=debias, newton_fn=make_newton())
+    finally:
+        photon.regen_segment_plain = plain
     print(report)
     assert draws.remaining == 0
     assert report.segments["photon"] == SEGS
+    assert len(twin_calls) == SEGS
+    assert all(launches_since(launches).get(k, 0) == 0
+               for k in ("walk_refill", "walk_bezier", "walk_shade"))
     assert report.lanes["self-hit flip"] <= MAX_FLIPS
     for f in ("pos", "n", "flux", "valid"):
         np.testing.assert_array_equal(getattr(dep_p, f).numpy(),
@@ -78,6 +97,35 @@ def test_regen_round_matches_jax_with_replayed_draws():
 def test_two_light_round_matches_jax_with_replayed_draws():
     """The round-robin refill of two lights, held the same way."""
     _round_matches_jax(*LIGHTS2, n_photons=512, seed=3)
+
+
+def test_debiased_regen_round_matches_jax_with_replayed_draws():
+    """``debias_roulette``: each continuation's flux divided by its branch
+    probability, held the same way."""
+    _round_matches_jax(*LIGHTS2, n_photons=256, seed=5, debias=True)
+
+
+def test_regen_segment_under_autograd_takes_the_op_path():
+    """The kernels have no backward: with autograd on and an input that
+    requires grad, the wrapper takes the op path (here on the CPU always),
+    and the gradient of the round's deposited flux reaches the atlas and
+    the light colour through the segments."""
+    ps = port_scene(jscenes.full(atlas_res=16).replace(bezier_compact_frac=0.05))
+    lc = ps.light_color.clone().requires_grad_(True)
+    atlas = ps.atlas.clone().requires_grad_(True)
+    ps = ps.replace(atlas=atlas)
+    carry = (ps.light_pos.new_zeros((64, 3)),) * 3
+    assert photon._grad_reaches(ps, ps.light_pos, lc, carry)
+    with torch.no_grad():
+        assert not photon._grad_reaches(ps, ps.light_pos, lc, carry)
+    assert not photon._grad_reaches(ps.replace(atlas=ps.atlas.detach()), ps.light_pos,
+                                    lc.detach(), carry)
+    launches = launch_counts()
+    dep, _, _ = photon.photon_trace_regen(ps, torch.Generator().manual_seed(1), ps.light_pos,
+                                          lc, 256, None, 4, newton_fn=make_newton())
+    dep.flux[dep.valid].sum().backward()
+    assert float(atlas.grad.abs().sum()) > 0 and float(lc.grad.abs().sum()) > 0
+    assert all(n == 0 for n in launches_since(launches).values())
 
 
 def test_two_lights_round_robin_balanced():
@@ -143,3 +191,54 @@ def test_static_round_matches_jax_with_replayed_draws():
         np.testing.assert_array_equal(getattr(dep_p, fld).numpy(),
                                       np.asarray(getattr(dep_j, fld)), err_msg=fld)
     assert int(dep_p.valid.sum()) > 2 * N
+
+
+def test_walk_kernel_structs_match_the_source():
+    """``ops/walk_kernel.py``'s ctypes structures lay out csrc/walk.cu's
+    ``WalkScene`` and ``WalkLanes`` field by field (a pointer or an int
+    each, in order), and its threads a block are the source's."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from raytrace3_tpu_torch.ops import walk_kernel
+
+    src = (Path(walk_kernel.__file__).parent.parent / "csrc" / "walk.cu").read_text()
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) == str(walk_kernel.THREADS)
+    for name, cls in (("WalkScene", walk_kernel._Scene), ("WalkLanes", walk_kernel._Lanes)):
+        body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+        fields = []
+        for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+            decl = decl.strip()
+            if not decl:
+                continue
+            kind = ctypes.c_void_p if "*" in decl else ctypes.c_int
+            names = decl.replace("*", " ").split()[-1] if "," not in decl else None
+            if names is None:
+                head, *rest = decl.split(",")
+                names = [head.split()[-1]] + [r.strip() for r in rest]
+            else:
+                names = [names]
+            fields += [(n, kind) for n in names]
+        assert fields == list(cls._fields_), name
+
+
+def test_walk_segment_bytes_count_the_segments_lane_tensors():
+    """``walk_kernel.segment_bytes``, the least time's byte count, is the
+    bytes of one segment's lane tensors, each once: the carry in, the five
+    draws, the carry out and the record's fields beyond the position it
+    shares with the carry.  The scene's tables and the per-light scalars
+    count nothing."""
+    from raytrace3_tpu_torch.ops import walk_kernel
+
+    ps = port_scene(jscenes.full(atlas_res=16).replace(bezier_compact_frac=0.05))
+    N = 256
+    carry = photon.regen_state_init(1, N, "cpu") + (torch.zeros((1,)),)
+    g = torch.Generator().manual_seed(4)
+    uni = tuple(torch.rand((N,), generator=g) for _ in range(5))
+    c_out, rec = photon.regen_segment_plain(ps, photon._material_lanes(ps), uni, ps.light_pos,
+                                            ps.light_color, carry, SEGS, False, make_newton())
+    assert torch.equal(rec[0], c_out[0])
+    lanes = lambda ts: sum(t.nbytes for t in ts if t.dim() and t.shape[0] == N)
+    assert walk_kernel.segment_bytes(N) == lanes(carry) + lanes(uni) + lanes(c_out) + lanes(rec[1:])
+    assert walk_kernel.segment_bytes(N) == 127 * N
