@@ -5,8 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels and the regen walk's segment
-kernels (``walk.cu``) from ``raytrace3_tpu_torch/csrc/`` and drives the
+It builds the port's six CUDA kernels, the regen walk's segment kernels
+(``walk.cu``) and the staged eye's (``eye.cu``) from
+``raytrace3_tpu_torch/csrc/`` and drives the
 port's paths: the render pass, the train step, the CLI, the stream
 deposit's pass and the sharded render and train step (phases
 16-18, in spawned ranks; with more cards the ranks take one each).  The
@@ -22,7 +23,7 @@ deposit at tile 256 / chunk 512 / work cap 16384 with 2-D banding and
 merged z windows, Adam on an MSE loss).  Phases, each of which ends the run
 with a non-zero exit when it fails:
 
-  1. the card's name and power limit; build the seven sources, in parallel;
+  1. the card's name and power limit; build the eight sources, in parallel;
   2. the Newton kernel against its plain PyTorch twin on the teapot-bound
      rays of one photon segment at bench shapes, bit for bit, with the open
      (ray, patch) pairs, the rays a block and the queue drains, and its
@@ -40,7 +41,8 @@ with a non-zero exit when it fails:
   5. the render path: the port bench's own measurement
      (``bench_torch.measure`` at ``bench_torch.py``'s defaults: one first
      pass and 4 timed passes), with the kernels' launch counters read around
-     it (Newton, the tile deposit and the three walk kernels launched) and
+     it (Newton, the tile deposit, the three walk kernels and the three eye
+     kernels launched) and
      the bench's JSON record printed;
   6. the lane deposit kernel against its plain twin on one train round
      (14 x 32768 deposits against the 256^2 hit-point layout), the flux held
@@ -150,6 +152,15 @@ with a non-zero exit when it fails:
      the carry and the record bit for bit; then each kernel's device time
      beside its byte bound, the segment's least time, and a whole segment
      through the kernels and through the twin.
+ 25. (run after phase 24) the staged eye's kernels (``eye.cu``: ``eye_hit``,
+     ``eye_shade``, and ``walk.cu``'s row kernel as ``eye_bezier``) against
+     their plain twin, the op code of ``eye.eye_segment_plain``, on the main
+     path's own eye: the bench's 262,144 camera rays through its grown
+     staged schedule, every segment on the same lanes through both, the
+     twin's output going on; every lane of the next lanes and the hit-point
+     rows, and the count dropped, bit for bit.  Then each kernel's device
+     time on the first segment beside its byte bound, the segment's least
+     time, and a whole segment through the kernels and through the twin.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -245,6 +256,9 @@ NEWTON_V1_GATE_OPS, NEWTON_V1_ITER_OPS = 120, 543
 #: and the segment whose kernels are timed (origins spread over the room).
 WALK_LANES = (131072, 1048576)
 WALK_TIMED_SEGMENT = 3
+#: Phase 25: the eye segment whose kernels are timed (the first: every
+#: camera ray).
+EYE_TIMED_SEGMENT = 0
 #: Phase 11: the CLI's passes at the reference1024 preset, and the card's
 #: resume check: a 64^2 render resumed from a one-pass checkpoint against
 #: the same render run straight.  The walks are deterministic on the card;
@@ -408,10 +422,11 @@ def make_pass(settings: dict, device, deposit=None, newton_fn=None):
 
 
 SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.cu",
-           "deposit_block.cu", "deposit_stream.cu", "walk.cu")
+           "deposit_block.cu", "deposit_stream.cu", "walk.cu", "eye.cu")
 #: The kernels line's rows, each a ``CudaKernel``'s name (``ops/cuda_build.KERNELS``).
 KERNEL_ROWS = ("newton", "deposit_tile", "deposit_lane", "deposit_lane_bwd",
-               "deposit_block", "deposit_stream", "walk_refill", "walk_bezier", "walk_shade")
+               "deposit_block", "deposit_stream", "walk_refill", "walk_bezier", "walk_shade",
+               "eye_hit", "eye_bezier", "eye_shade")
 
 
 def zero_counters() -> None:
@@ -666,18 +681,119 @@ def phase_walk(card: str, device) -> tuple:
     return tuple(rows.values())
 
 
-def bench_hitpoints(device):
-    """(cfg, scene, hit points, eye stats) of the bench's 512^2 eye pass."""
+def eye_differences(got, want) -> dict:
+    """Lanes where two eye segments' (next lanes, dropped, rows) differ, by
+    field (NaN equal to NaN; ``dropped`` as the scalar)."""
+    names = ("pos", "dir", "weight", "pixel", "active", "rows")
+    out = {}
+    for name, g, w in zip(names, got[0] + (got[2],), want[0] + (want[2],)):
+        ne = g != w
+        if g.is_floating_point():
+            ne &= ~(torch.isnan(g) & torch.isnan(w))
+        out[name] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+    out["dropped"] = int(got[1] != want[1])
+    return out
+
+
+def phase_eye(card: str, device) -> tuple:
+    """Phase 25: the staged eye's kernels (``ops/eye_kernel``) against their
+    plain twin (``eye.eye_segment_plain``) on the bench's own eye pass
+    (its 262,144 camera rays, its grown staged schedule, the Newton kernel
+    on both sides): each segment runs on the same lanes through both, the
+    twin's output goes on through the pass's compactions; every lane bit
+    for bit.  Then the three kernels' device times on segment
+    EYE_TIMED_SEGMENT beside their byte bounds (``eye_kernel
+    .eye_kernel_bytes``), the segment's least time (``eye_segment_bytes``)
+    and the whole segment through the kernels and through the twin.
+    Returns the kernels line's three rows."""
+    from raytrace3_tpu_torch.geometry.bezier import solve_gated
+    from raytrace3_tpu_torch.ops import eye_kernel, walk_kernel
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render import eye
+
+    cfg, scene, org, dir = bench_eye_rays(device)
+    newton = make_newton(cfg.newton_iters, RESTARTS)
+    real, plain, pairs = eye.eye_segment, eye.eye_segment_plain, []
+
+    def both(scene_, fetch, lanes, newton_fn=None, slots=1, eye=None):
+        got = real(scene_, fetch, lanes, newton_fn, slots, eye=eye)
+        want = plain(scene_, fetch, lanes, newton_fn, slots)
+        pairs.append((lanes, got, want, eye))
+        return want
+
+    eye.eye_segment = both
+    try:
+        _, st = eye.eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
+                             cfg.init_r2, newton_fn=newton,
+                             compact_schedule=cfg.eye_compact_schedule, grow=True)
+    finally:
+        eye.eye_segment = real
+    torch.cuda.synchronize()
+    bad, rows = {}, 0
+    for _, got, want, _ in pairs:
+        for f, v in eye_differences(got, want).items():
+            bad[f] = bad.get(f, 0) + v
+        rows += int((want[2][:, 10] > 0.5).sum())
+    widths = [p[0][0].shape[0] for p in pairs]
+    print(f"[25] eye, {org.shape[0]} camera rays x {len(pairs)} segments (lanes "
+          f"{sorted(set(widths), reverse=True)}, {st['eye_grown_lanes']} grown), kernels "
+          f"against the plain twin on the same lanes: lanes that differ {bad}; hit-point rows "
+          f"{rows}; kernel segments {st['eye_kernel_segments']}")
+    if (any(bad.values()) or len(pairs) != cfg.max_depth + 1 or rows < org.shape[0] // 2
+            or st["eye_kernel_segments"] != len(pairs)):
+        raise SystemExit("phase 25 failed: the eye kernels disagree with their plain twin")
+    lanes, _, _, es = pairs[EYE_TIMED_SEGMENT]
+    n = lanes[0].shape[0]
+    w = eye_kernel.SegmentLanes(es, lanes)
+    w.hit()
+    idx, d_c, hits = solve_gated(w.o, w.d, scene.bezier.ctrl, w.gate, newton,
+                                 scene.bezier_compact_frac)
+    rays = hits[0].shape[0]
+    solved = rays if idx is None else int((idx < n).sum())
+    bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, es.tables.ctrl,
+                                          kernel=eye_kernel.BEZIER)
+    times = {"eye_hit": kernel_times(w.hit), "eye_bezier": kernel_times(bez),
+             "eye_shade": kernel_times(w.shade)}
+    fetch = eye._eye_material_lanes(scene)
+    seg_ms = cuda_ms(lambda: es.segment(lanes, newton), 5)
+    plain_ms = cuda_ms(lambda: plain(scene, fetch, lanes, newton), 3)
+    nbytes = eye_kernel.eye_kernel_bytes(n, rays, solved)
+    replaces = "none: the XLA-fused segment of raytrace3_tpu/render/eye.py, eye_segment"
+    here = {name: kernel_row(name, "walk.cu" if name == "eye_bezier" else "eye.cu", replaces,
+                             0.0, times[name], plain_ms, 0, nbytes[name]) for name in times}
+    least_ms, _ = bound(0, eye_kernel.eye_segment_bytes(n))
+    three = sum(r["ms"] for r in here.values())
+    print(f"[25] eye, {n} lanes, segment {EYE_TIMED_SEGMENT} ({solved} of {rays} compacted "
+          f"slots hold a ray): " + "; ".join(
+              f"{k} {r['ms'] * 1e3:.2f} us device, {r['call_ms'] * 1e3:.1f} us a call, "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['ms'] / r['bound_ms']:.2f}x)"
+              for k, r in here.items()) + f" ({card})")
+    print(f"[25] eye, {n} lanes: the three {three * 1e3:.2f} us = {three / least_ms:.2f}x the "
+          f"segment's least time {least_ms * 1e3:.2f} us "
+          f"({eye_kernel.eye_segment_bytes(n) / n:.0f} bytes a lane); a segment through the "
+          f"kernels {seg_ms:.3f} ms, through the twin {plain_ms:.3f} ms ({card})")
+    return tuple(here.values())
+
+
+def bench_eye_rays(device):
+    """(cfg, scene, org, dir): the bench's scene and its 512^2 camera rays."""
     from raytrace3_tpu_torch.render.camera import emit_rays, look_at
     from raytrace3_tpu_torch.render.driver import build_scene
-    from raytrace3_tpu_torch.render.eye import eye_pass
     from raytrace3_tpu_torch.utils.config import RenderConfig
 
     cfg = RenderConfig(**BENCH)
     scene = build_scene(cfg, device)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
+    return cfg, scene, org, dir
+
+
+def bench_hitpoints(device):
+    """(cfg, scene, hit points, eye stats) of the bench's 512^2 eye pass."""
+    from raytrace3_tpu_torch.ops.newton_kernel import make_newton
+    from raytrace3_tpu_torch.render.eye import eye_pass
+
+    cfg, scene, org, dir = bench_eye_rays(device)
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
                       cfg.init_r2, newton_fn=make_newton(cfg.newton_iters, RESTARTS),
                       compact_schedule=cfg.eye_compact_schedule, grow=True)
@@ -777,7 +893,8 @@ def phase_main(card: str, device) -> dict:
           and tuple(img.shape) == (512, 512, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0
           and launches["newton"] > 0 and launches["deposit_tile"] > 0
-          and all(launches[k] > 0 for k in ("walk_refill", "walk_bezier", "walk_shade")))
+          and all(launches[k] > 0 for k in ("walk_refill", "walk_bezier", "walk_shade",
+                                            "eye_hit", "eye_bezier", "eye_shade")))
     if not ok:
         raise SystemExit("phase 5 failed: the main path's result or launches are wrong")
     return launches
@@ -2151,6 +2268,7 @@ def main() -> int:
     newton = phase_newton(card, device)
     deps = newton.pop("_round")
     walk = phase_walk(card, device)
+    eye_rows = phase_eye(card, device)
     deposit = phase_deposit(card, device, deps)
     phase_small(device)
     render = phase_main(card, device)
@@ -2188,7 +2306,7 @@ def main() -> int:
              "sharded": sharded, "sharded_gloo": sharded_gloo, "dryrun": dryrun,
              "restarts": restarts, "gradcheck": gradcheck, "inverse": inverse,
              "tools": tools, "finish": finish}
-    rows = (newton, deposit, lane, lane_bwd, block, stream) + walk
+    rows = (newton, deposit, lane, lane_bwd, block, stream) + walk + eye_rows
     for row in rows:
         name = row["name"]
         row["launches_by_path"] = {p: n[name] for p, n in paths.items()}

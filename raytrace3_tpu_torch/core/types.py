@@ -53,6 +53,24 @@ def eta_from_refrn(rn: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, safe, 1.0 / safe)
 
 
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif dataclasses.is_dataclass(x):
+        for fld in dataclasses.fields(x):
+            yield from _tensors(getattr(x, fld.name))
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def grad_reaches(*inputs) -> bool:
+    """Whether autograd records and some tensor of ``inputs`` (records,
+    tuples and lists searched) requires grad: the hand-written kernels have
+    no backward, so their callers take the op path then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(inputs))
+
+
 @dataclass
 class HitRecord(Record):
     """Nearest-hit data for a batch of rays (Element.h:20-38)."""

@@ -186,16 +186,17 @@ class SegmentLanes:
 
 def bezier_rows(rows: torch.Tensor, idx: torch.Tensor | None, dir: torch.Tensor,
                 t: torch.Tensor, u: torch.Tensor, v: torch.Tensor, pid: torch.Tensor,
-                hit: torch.Tensor, ctrl: torch.Tensor) -> None:
+                hit: torch.Tensor, ctrl: torch.Tensor, kernel: CudaKernel = BEZIER) -> None:
     """Write each solved ray's (t, u, v, hit, normal) into row ``idx[j]``
     of ``rows`` (N, 7) (row j without ``idx``); fill slots (``idx`` = N)
-    write nothing."""
+    write nothing.  ``kernel``: the handle that launches and counts it (the
+    eye's is ``eye_kernel.BEZIER``)."""
     dev = rows.device
     cap = t.shape[0]
     a = [x.contiguous() for x in (dir, t, u, v, pid.to(torch.int32), hit, ctrl)]
     if idx is not None:
         idx = idx.contiguous()
-    BEZIER.launch(dev, cap, rows.shape[0], _p(idx), *[_p(x) for x in a], _p(rows))
+    kernel.launch(dev, cap, rows.shape[0], _p(idx), *[_p(x) for x in a], _p(rows))
 
 
 def _check(dev, carry, draws, N: int, L: int) -> None:

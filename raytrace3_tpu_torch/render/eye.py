@@ -18,15 +18,22 @@ point beyond the buffer are dropped and counted in ``dropped``.  With
 ``grow`` the staged wavefront drops no ray at a stage: a stage whose
 survivors outnumber its width is widened to hold them (one host read of
 the survivors a compaction), and the lanes added are ``eye_grown_lanes``.
+
+On CUDA float32 lanes at one slot a pixel, where autograd reaches no input,
+a segment runs as the kernels of ``ops/eye_kernel.py`` around the Bezier
+compaction and Newton (``eye_kernel_segments`` counts those segments); on
+CPU tensors, at K > 1 and under autograd, as the plain op code
+(:func:`eye_segment_plain`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.types import HitPoints, eta_from_refrn, make_hitpoints
+from ..core.types import HitPoints, eta_from_refrn, grad_reaches, make_hitpoints
 from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
+from ..ops import eye_kernel
 from ..ops.compact import compact_indices
 from ..ops.onehot import take_rows
 
@@ -38,7 +45,7 @@ INIT_R2 = 2.0
 
 def _eye_material_lanes(scene: Scene):
     """Per-lane fetch of [is_diff, is_refl, is_refr, diff, refl, refr,
-    refrn] from one (N, 13) material table."""
+    refrn] from one (N, 13) material table, its ``table``."""
     m = scene.materials
     tbl = torch.cat([
         m.is_diff().to(torch.float32)[:, None],
@@ -52,7 +59,24 @@ def _eye_material_lanes(scene: Scene):
         return (t[:, 0] > 0.5, t[:, 1] > 0.5, t[:, 2] > 0.5,
                 t[:, 3:6], t[:, 6:9], t[:, 9:12], t[:, 12])
 
+    fetch.table = tbl
     return fetch
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lives where the eye kernels run (a CUDA device)."""
+    return x.is_cuda
+
+
+def _kernel_scene(scene: Scene, fetch_mat, org: torch.Tensor, slots: int):
+    """The eye kernels' side of ``scene`` (``ops/eye_kernel.EyeScene``)
+    where they can run: CUDA float32 rays, one slot a pixel, a plane and a
+    sphere in the scene, and autograd reaching none of its tensors; else
+    None."""
+    if (slots == 1 and _on_card(org) and org.dtype == torch.float32 and scene.n_planes >= 1
+            and scene.n_spheres >= 1 and not grad_reaches(scene)):
+        return eye_kernel.EyeScene(scene, fetch_mat.table)
+    return None
 
 
 def eye_stage_widths(n_rays: int, schedule: tuple,
@@ -76,7 +100,7 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
              init_r2: float = INIT_R2, newton_fn=None, pixel_offset: int = 0,
              compact_schedule: tuple = (), grow: bool = False):
     """Trace camera rays; return (HitPoints, {"count", "dropped",
-    "eye_grown_lanes"}).
+    "eye_grown_lanes", "eye_kernel_segments"}).
 
     ``slots``: K ray slots a pixel (K = 1 suffices for scenes whose
     materials have at most one specular lobe, every reference scene).
@@ -97,7 +121,7 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
                            newton_fn, pixel_offset, slots)
 
 
-def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1):
+def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1, eye=None):
     """One segment of either eye wavefront.
 
     ``lanes`` = (org, dir, wgt, pixel, active), the lanes of the JAX pass's
@@ -111,7 +135,24 @@ def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1):
     1 a pixel's K primaries and K refractions that coexist with a
     reflection are stably partitioned, valid first, into its K slots
     (eye.py:186-212); the valid ones that find no slot are dropped.
+
+    CUDA lanes at one slot run the kernels (``ops/eye_kernel.EyeScene
+    .segment``) unless autograd would reach an input; the rest run
+    :func:`eye_segment_plain`.  ``eye``: the scene's side of the kernels,
+    which the passes build once where the kernels can take the scene
+    (None: decided and built here).  The segment draws nothing.
     """
+    if slots == 1 and _on_card(lanes[0]) and not grad_reaches(lanes):
+        if eye is None:
+            eye = _kernel_scene(scene, fetch_mat, lanes[0], slots)
+        if eye is not None:
+            return eye.segment(lanes, newton_fn)
+    return eye_segment_plain(scene, fetch_mat, lanes, newton_fn, slots)
+
+
+def eye_segment_plain(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1):
+    """:func:`eye_segment` as PyTorch operators on any device and at any
+    ``slots``."""
     o, d, wgt, px, act = lanes
     dtype = o.dtype
     rec = intersect_scene(scene, o, d, newton_fn=newton_fn)
@@ -187,12 +228,13 @@ def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
     the buffer stays in the autograd graph."""
     dev = org.device
     fetch_mat = _eye_material_lanes(scene)
+    eye = _kernel_scene(scene, fetch_mat, org, slots)
     lanes = _primary_lanes(org, dir, pixel_offset, slots)
     buf = torch.zeros((capacity + 1, 11), dtype=org.dtype, device=dev)
     count = torch.zeros((), dtype=torch.int32, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_depth + 1):
-        lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn, slots)
+        lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn, slots, eye=eye)
         valid = rows[:, 10] > 0.5
         slot = count + torch.cumsum(valid.to(torch.int32), 0) - 1
         widx = torch.where(valid & (slot < capacity), slot, capacity).long()
@@ -201,9 +243,9 @@ def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
         new_count = torch.clamp_max(count + n_new, capacity)
         dropped = dropped + n_dropped + (count + n_new - new_count)
         count = new_count
-    return _hitpoints(buf[:capacity], capacity, init_r2), {"count": count,
-                                                           "dropped": dropped,
-                                                           "eye_grown_lanes": 0}
+    return _hitpoints(buf[:capacity], capacity, init_r2), {
+        "count": count, "dropped": dropped, "eye_grown_lanes": 0,
+        "eye_kernel_segments": 0 if eye is None else eye.segments}
 
 
 def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
@@ -211,6 +253,7 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
     fetch_mat = _eye_material_lanes(scene)
+    eye = _kernel_scene(scene, fetch_mat, org, 1)
 
     lanes = _primary_lanes(org, dir, pixel_offset)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
@@ -246,8 +289,8 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
                      (lane_rows[:, 10] > 0.5) & ok)
             dropped = dropped + torch.clamp_min(n_act - w, 0)
         for _ in range(n_segs):
-            lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes,
-                                                 newton_fn)
+            lanes, n_dropped, rows = eye_segment(scene, fetch_mat, lanes, newton_fn,
+                                                 eye=eye)
             dropped = dropped + n_dropped
             all_rows.append(rows)
 
@@ -261,4 +304,5 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
     n_valid = valid.sum(dtype=torch.int32)
     count = torch.clamp_max(n_valid, capacity)
     dropped = dropped + torch.clamp_min(n_valid - capacity, 0)
-    return hp, {"count": count, "dropped": dropped, "eye_grown_lanes": grown}
+    return hp, {"count": count, "dropped": dropped, "eye_grown_lanes": grown,
+                "eye_kernel_segments": 0 if eye is None else eye.segments}

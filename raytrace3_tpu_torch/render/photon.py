@@ -25,14 +25,13 @@ cosine-hemisphere uniforms (N each).
 
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import torch
 
 from ..core.sampling import (TWO_PI, as_draws, cosine_hemisphere, roulette,
                              uniform_sphere)
-from ..core.types import Deposits, eta_from_refrn
+from ..core.types import Deposits, eta_from_refrn, grad_reaches
 from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
 from ..ops.compact import compact_indices
@@ -151,7 +150,7 @@ def photon_trace_regen(scene: Scene, rng, light_pos: torch.Tensor,
         state = regen_state_init(L, n_photons, dev)
     fetch_mat = _material_lanes(scene)
     walk = None
-    if dev.type == "cuda" and not _grad_reaches(scene, light_pos, light_color):
+    if dev.type == "cuda" and not grad_reaches(scene, light_pos, light_color):
         walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
 
     carry = tuple(state) + (torch.zeros((L,), dtype=torch.float32, device=dev),)
@@ -186,30 +185,13 @@ def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
     N = carry[0].shape[0]
     uniforms = (draws.uniform((N,), -1.0, 1.0), draws.uniform((N,), 0.0, TWO_PI),
                 draws.uniform((N,)), draws.uniform((N,)), draws.uniform((N,)))
-    if carry[0].is_cuda and not _grad_reaches(carry):
-        if walk is None and not _grad_reaches(scene, light_pos, light_color):
+    if carry[0].is_cuda and not grad_reaches(carry):
+        if walk is None and not grad_reaches(scene, light_pos, light_color):
             walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
         if walk is not None:
             return walk.segment(uniforms, carry, segs, debias_roulette, newton_fn)
     return regen_segment_plain(scene, fetch_mat, uniforms, light_pos, light_color, carry,
                                segs, debias_roulette, newton_fn)
-
-
-def _tensors(x):
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif dataclasses.is_dataclass(x):
-        for fld in dataclasses.fields(x):
-            yield from _tensors(getattr(x, fld.name))
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            yield from _tensors(v)
-
-
-def _grad_reaches(*inputs) -> bool:
-    """Whether autograd records and some input tensor requires grad (the
-    kernels have no backward)."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(inputs))
 
 
 def regen_segment_plain(scene: Scene, fetch_mat, uniforms, light_pos: torch.Tensor,

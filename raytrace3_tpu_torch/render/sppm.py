@@ -249,7 +249,9 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
     the staged wavefront grows rather than drop rays (``eye_pass(grow=
     True)``; ``eye_grown_lanes`` counts the lanes added).  Returns (image
     (R, 3), stats); the stats hold the pass's Bezier compaction tally
-    (``utils.trace.BEZIER_COUNTERS``) beside the drop counters.  Under a
+    (``utils.trace.BEZIER_COUNTERS``) beside the drop counters, and
+    ``eye_kernel_segments``, the eye segments that ran through the eye's
+    CUDA kernels.  Under a
     profiler the stages are the spans ``rt3.eye``, ``rt3.prepare``,
     ``rt3.walk`` and ``rt3.fold`` (each round) and ``rt3.estimate``."""
     with bezier_tally() as tally:

@@ -54,9 +54,9 @@ def main(argv=None) -> int:
     alive = []
     segment = eye.eye_segment
 
-    def counting(scene_, fetch_mat, lanes, newton_fn=None, slots=1):
+    def counting(scene_, fetch_mat, lanes, newton_fn=None, slots=1, **kw):
         alive.append(int(lanes[4].sum()))
-        return segment(scene_, fetch_mat, lanes, newton_fn, slots)
+        return segment(scene_, fetch_mat, lanes, newton_fn, slots, **kw)
 
     poses = []
     if args.pose is not None:

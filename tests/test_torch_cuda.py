@@ -1016,3 +1016,112 @@ def test_walk_takes_the_op_path_under_autograd(cuda_device):
         dep_k, _, _ = run(scene.replace(atlas=atlas))
     assert walk_kernel.SHADE.launches == before + 6
     assert int(dep_k.valid.sum()) > 4096
+
+
+#: The render cells' staged eye schedule (benchmark/configs/teapot512.json)
+#: and its Bezier compaction.
+EYE_SCHEDULE = ((1, 0.25), (4, 0.04), (6, 0.02))
+EYE_COMPACT_FRAC = 0.09
+
+
+def eye_pairs(device, monkeypatch, res, schedule=EYE_SCHEDULE, scene="full"):
+    """Every segment of an eye pass on ``scene`` at ``res``^2 through the
+    kernels (``eye.eye_segment``) and through the plain twin
+    (``eye.eye_segment_plain``), each on the same lanes; the twin's output
+    goes on, through the pass's own compactions (``schedule``; empty: the
+    slot wavefront at one slot).  Returns ([(lanes in, kernels' output,
+    twin's output)], the pass's stats)."""
+    from raytrace3_tpu_torch.render import eye
+    from raytrace3_tpu_torch.render.camera import emit_rays
+    from raytrace3_tpu_torch.scenes import get_scene, reference_camera
+
+    scene = get_scene(scene, atlas_res=64, device=device).replace(
+        bezier_compact_frac=EYE_COMPACT_FRAC)
+    org, d = emit_rays(reference_camera(res, res, device=device))
+    real, plain, pairs = eye.eye_segment, eye.eye_segment_plain, []
+
+    def both(scene_, fetch, lanes, newton_fn=None, slots=1, eye=None):
+        got = real(scene_, fetch, lanes, newton_fn, slots, eye=eye)
+        want = plain(scene_, fetch, lanes, newton_fn, slots)
+        pairs.append((lanes, got, want))
+        return want
+
+    monkeypatch.setattr(eye, "eye_segment", both)
+    _, st = eye.eye_pass(scene, org, d, int(res * res * 1.3),
+                         newton_fn=newton_kernel.make_newton(10, 8), compact_schedule=schedule,
+                         grow=True)
+    monkeypatch.undo()
+    return pairs, st
+
+
+def eye_differences(got, want) -> dict:
+    """Lanes where two eye segments' (next lanes, dropped, rows) differ, by
+    field, bit for bit (NaN equal to NaN)."""
+    names = ("pos", "dir", "weight", "pixel", "active", "rows")
+    out = {}
+    for name, g, w in zip(names, got[0] + (got[2],), want[0] + (want[2],)):
+        ne = g != w
+        if g.is_floating_point():
+            ne &= ~(torch.isnan(g) & torch.isnan(w))
+        out[name] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+    out["dropped"] = int(got[1] != want[1])
+    return out
+
+
+def _eye_launches():
+    from raytrace3_tpu_torch.ops import eye_kernel
+
+    return {k: h.launches for k, h in (("hit", eye_kernel.HIT), ("bezier", eye_kernel.BEZIER),
+                                       ("shade", eye_kernel.SHADE))}
+
+
+@pytest.mark.parametrize("res, schedule, scene", [(128, EYE_SCHEDULE, "full"),
+                                                  (512, EYE_SCHEDULE, "full"),
+                                                  (128, (), "full"),
+                                                  (128, EYE_SCHEDULE, "cornell_specular")],
+                         ids=["staged-128", "staged-512", "one-slot-128", "no-bezier-128"])
+def test_eye_kernels_match_plain(cuda_device, monkeypatch, res, schedule, scene):
+    """Fourteen segments of an eye pass: the kernels against the plain twin
+    on the card, from the same lanes.  The kernels round every operation as
+    the twin's operators do on the card (-fmad=false, the same operation
+    order), so every lane of the next lanes and the hit-point rows, and the
+    count of continuations dropped, equal the twin's bit for bit."""
+    before = _eye_launches()
+    pairs, st = eye_pairs(cuda_device, monkeypatch, res, schedule, scene)
+    torch.cuda.synchronize()
+    assert len(pairs) == 14 and st["eye_kernel_segments"] == 14
+    rows = 0
+    for k, (lanes, got, want) in enumerate(pairs):
+        diff = eye_differences(got, want)
+        assert not any(diff.values()), (k, diff)
+        rows += int((want[2][:, 10] > 0.5).sum())
+    assert rows > res * res // 2
+    after = _eye_launches()
+    assert after["hit"] - before["hit"] == 14 and after["shade"] - before["shade"] == 14
+    assert after["bezier"] - before["bezier"] == (14 if scene == "full" else 0)
+
+
+def test_eye_takes_the_op_path_under_autograd(cuda_device):
+    """With the atlas requiring grad, the one-slot eye on the card launches
+    no eye kernel and its gradient reaches the atlas; without grad the same
+    pass goes through the kernels."""
+    from raytrace3_tpu_torch.render import eye
+    from raytrace3_tpu_torch.render.camera import emit_rays
+    from raytrace3_tpu_torch.scenes import full, reference_camera
+
+    scene = full(atlas_res=32, device=cuda_device).replace(bezier_compact_frac=0.12)
+    org, d = emit_rays(reference_camera(64, 64, device=cuda_device))
+    run = lambda s: eye.eye_pass(s, org, d, 64 * 64 * 2,
+                                 newton_fn=newton_kernel.make_newton(10, 8))
+    before = _eye_launches()
+    atlas = scene.atlas.clone().requires_grad_(True)
+    hp, st = run(scene.replace(atlas=atlas))
+    assert _eye_launches() == before and st["eye_kernel_segments"] == 0
+    hp.wgt.sum().backward()
+    assert float(atlas.grad.abs().sum()) > 0
+    with torch.no_grad():
+        hp_k, st_k = run(scene.replace(atlas=atlas))
+    assert st_k["eye_kernel_segments"] == 14
+    assert _eye_launches()["shade"] == before["shade"] + 14
+    assert int(st_k["count"]) == int(st["count"])
+    assert torch.equal(hp_k.valid, hp.valid) and torch.equal(hp_k.pos, hp.pos)

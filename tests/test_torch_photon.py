@@ -115,10 +115,10 @@ def test_regen_segment_under_autograd_takes_the_op_path():
     atlas = ps.atlas.clone().requires_grad_(True)
     ps = ps.replace(atlas=atlas)
     carry = (ps.light_pos.new_zeros((64, 3)),) * 3
-    assert photon._grad_reaches(ps, ps.light_pos, lc, carry)
+    assert photon.grad_reaches(ps, ps.light_pos, lc, carry)
     with torch.no_grad():
-        assert not photon._grad_reaches(ps, ps.light_pos, lc, carry)
-    assert not photon._grad_reaches(ps.replace(atlas=ps.atlas.detach()), ps.light_pos,
+        assert not photon.grad_reaches(ps, ps.light_pos, lc, carry)
+    assert not photon.grad_reaches(ps.replace(atlas=ps.atlas.detach()), ps.light_pos,
                                     lc.detach(), carry)
     launches = launch_counts()
     dep, _, _ = photon.photon_trace_regen(ps, torch.Generator().manual_seed(1), ps.light_pos,
@@ -195,32 +195,24 @@ def test_static_round_matches_jax_with_replayed_draws():
 
 def test_walk_kernel_structs_match_the_source():
     """``ops/walk_kernel.py``'s ctypes structures lay out csrc/walk.cu's
-    ``WalkScene`` and ``WalkLanes`` field by field (a pointer or an int
-    each, in order), and its threads a block are the source's."""
-    import ctypes
+    ``WalkLanes`` and the ``WalkScene`` of the header it includes
+    (csrc/surface.cuh, shared with the eye's kernels) field by field (a
+    pointer or an int each, in order), and its threads a block are the
+    source's."""
     import re
     from pathlib import Path
 
     from raytrace3_tpu_torch.ops import walk_kernel
+    from test_torch_eye_kernel import c_struct_fields
 
-    src = (Path(walk_kernel.__file__).parent.parent / "csrc" / "walk.cu").read_text()
+    csrc = Path(walk_kernel.__file__).parent.parent / "csrc"
+    src = (csrc / "walk.cu").read_text()
     assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) == str(walk_kernel.THREADS)
-    for name, cls in (("WalkScene", walk_kernel._Scene), ("WalkLanes", walk_kernel._Lanes)):
-        body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
-        fields = []
-        for decl in re.sub(r"//[^\n]*", "", body).split(";"):
-            decl = decl.strip()
-            if not decl:
-                continue
-            kind = ctypes.c_void_p if "*" in decl else ctypes.c_int
-            names = decl.replace("*", " ").split()[-1] if "," not in decl else None
-            if names is None:
-                head, *rest = decl.split(",")
-                names = [head.split()[-1]] + [r.strip() for r in rest]
-            else:
-                names = [names]
-            fields += [(n, kind) for n in names]
-        assert fields == list(cls._fields_), name
+    assert '#include "surface.cuh"' in src
+    header = (csrc / "surface.cuh").read_text()
+    for name, cls, text in (("WalkScene", walk_kernel._Scene, header),
+                            ("WalkLanes", walk_kernel._Lanes, src)):
+        assert c_struct_fields(text, name) == list(cls._fields_), name
 
 
 def test_walk_segment_bytes_count_the_segments_lane_tensors():
