@@ -612,7 +612,6 @@ def phase_walk(card: str, device) -> tuple:
     through the twin.  Returns the kernels line's three rows (the render
     round's)."""
     from raytrace3_tpu_torch.core.sampling import TWO_PI, GeneratorDraws
-    from raytrace3_tpu_torch.geometry.bezier import solve_gated
     from raytrace3_tpu_torch.ops import walk_kernel
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
     from raytrace3_tpu_torch.render import photon
@@ -626,18 +625,22 @@ def phase_walk(card: str, device) -> tuple:
     fetch = photon._material_lanes(scene)
     lp, lc = scene.light_pos, scene.light_color
     L, segs, debias = lp.shape[0], cfg.max_depth + 1, cfg.debias_roulette
-    ws = walk_kernel.WalkScene(scene, fetch.table, lp, lc)
     replaces = "none: the XLA-fused segment of raytrace3_tpu/render/photon.py, regen_segment"
     rows = None
     for n in WALK_LANES:
         draws = GeneratorDraws(torch.Generator(device=device).manual_seed(24))
         carry = photon.regen_state_init(L, n // L, device) + (
             torch.zeros((L,), dtype=torch.float32, device=device),)
+        ws = walk_kernel.kernel_tables(scene, fetch.table, lp, lc, carry)
+        if ws is None:
+            raise SystemExit("phase 24 failed: the walk kernels were not picked on the card")
+        segment = lambda uni, carry: ws.run(
+            walk_kernel.SegmentLanes(ws, uni, carry, segs, debias), newton)
         bad, deposits = {}, 0
         for k in range(segs):
             uni = (draws.uniform((n,), -1.0, 1.0), draws.uniform((n,), 0.0, TWO_PI),
                    draws.uniform((n,)), draws.uniform((n,)), draws.uniform((n,)))
-            got = ws.segment(uni, carry, segs, debias, newton)
+            got = segment(uni, carry)
             want = photon.regen_segment_plain(scene, fetch, uni, lp, lc, carry, segs, debias,
                                               newton)
             for f, v in walk_differences(got, want).items():
@@ -652,15 +655,8 @@ def phase_walk(card: str, device) -> tuple:
             raise SystemExit("phase 24 failed: the walk kernels disagree with their plain twin")
         uni, carry = timed
         w = walk_kernel.SegmentLanes(ws, uni, carry, segs, debias)
-        w.refill()
-        idx, d_c, hits = solve_gated(w.o_r, w.d_r, scene.bezier.ctrl, w.gate, newton,
-                                     scene.bezier_compact_frac)
-        rays = hits[0].shape[0]
-        solved = rays if idx is None else int((idx < n).sum())
-        bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, ws.ctrl)
-        times = {"walk_refill": kernel_times(w.refill), "walk_bezier": kernel_times(bez),
-                 "walk_shade": kernel_times(w.shade)}
-        seg_ms = cuda_ms(lambda: ws.segment(uni, carry, segs, debias, newton), 5)
+        times, rays, solved = segment_kernel_times(ws, w, newton)
+        seg_ms = cuda_ms(lambda: segment(uni, carry), 5)
         plain_ms = cuda_ms(lambda: photon.regen_segment_plain(
             scene, fetch, uni, lp, lc, carry, segs, debias, newton), 3)
         nbytes = walk_kernel.kernel_bytes(n, rays, solved, L)
@@ -679,6 +675,24 @@ def phase_walk(card: str, device) -> tuple:
               f"the kernels {seg_ms:.3f} ms, through the twin {plain_ms:.3f} ms ({card})")
         rows = rows or here
     return tuple(rows.values())
+
+
+def segment_kernel_times(tables, w, newton) -> tuple:
+    """({kernel name: kernel_times}, Bezier slots, slots that hold a ray) of
+    one segment's three kernels on ``w`` (a ``walk_kernel.Segment``): its
+    first kernel, the row kernel on ``tables.solve``'s winners, its
+    shade."""
+    from raytrace3_tpu_torch.ops import walk_kernel
+
+    first, rows, shade = w.KERNELS
+    w.launch(first)
+    idx, d_c, hits = tables.solve(w, newton)
+    rays = hits[0].shape[0]
+    solved = rays if idx is None else int((idx < w.rays[0].shape[0]).sum())
+    bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, tables.ctrl, kernel=rows)
+    times = {first.name: kernel_times(lambda: w.launch(first)), rows.name: kernel_times(bez),
+             shade.name: kernel_times(lambda: w.launch(shade))}
+    return times, rays, solved
 
 
 def eye_differences(got, want) -> dict:
@@ -706,8 +720,7 @@ def phase_eye(card: str, device) -> tuple:
     .eye_kernel_bytes``), the segment's least time (``eye_segment_bytes``)
     and the whole segment through the kernels and through the twin.
     Returns the kernels line's three rows."""
-    from raytrace3_tpu_torch.geometry.bezier import solve_gated
-    from raytrace3_tpu_torch.ops import eye_kernel, walk_kernel
+    from raytrace3_tpu_torch.ops import eye_kernel
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
     from raytrace3_tpu_torch.render import eye
 
@@ -725,7 +738,7 @@ def phase_eye(card: str, device) -> tuple:
     try:
         _, st = eye.eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
                              cfg.init_r2, newton_fn=newton,
-                             compact_schedule=cfg.eye_compact_schedule, grow=True)
+                             compact_schedule=cfg.eye_compact_schedule)
     finally:
         eye.eye_segment = real
     torch.cuda.synchronize()
@@ -744,18 +757,9 @@ def phase_eye(card: str, device) -> tuple:
         raise SystemExit("phase 25 failed: the eye kernels disagree with their plain twin")
     lanes, _, _, es = pairs[EYE_TIMED_SEGMENT]
     n = lanes[0].shape[0]
-    w = eye_kernel.SegmentLanes(es, lanes)
-    w.hit()
-    idx, d_c, hits = solve_gated(w.o, w.d, scene.bezier.ctrl, w.gate, newton,
-                                 scene.bezier_compact_frac)
-    rays = hits[0].shape[0]
-    solved = rays if idx is None else int((idx < n).sum())
-    bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, es.tables.ctrl,
-                                          kernel=eye_kernel.BEZIER)
-    times = {"eye_hit": kernel_times(w.hit), "eye_bezier": kernel_times(bez),
-             "eye_shade": kernel_times(w.shade)}
+    times, rays, solved = segment_kernel_times(es, eye_kernel.SegmentLanes(es, lanes), newton)
     fetch = eye._eye_material_lanes(scene)
-    seg_ms = cuda_ms(lambda: es.segment(lanes, newton), 5)
+    seg_ms = cuda_ms(lambda: es.run(eye_kernel.SegmentLanes(es, lanes), newton), 5)
     plain_ms = cuda_ms(lambda: plain(scene, fetch, lanes, newton), 3)
     nbytes = eye_kernel.eye_kernel_bytes(n, rays, solved)
     replaces = "none: the XLA-fused segment of raytrace3_tpu/render/eye.py, eye_segment"
@@ -796,7 +800,7 @@ def bench_hitpoints(device):
     cfg, scene, org, dir = bench_eye_rays(device)
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
                       cfg.init_r2, newton_fn=make_newton(cfg.newton_iters, RESTARTS),
-                      compact_schedule=cfg.eye_compact_schedule, grow=True)
+                      compact_schedule=cfg.eye_compact_schedule)
     return cfg, scene, hp, st
 
 
@@ -1198,8 +1202,7 @@ def preset_round(device) -> dict:
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     org, dir = emit_rays(look_at(f32(BASE), f32(LOOK), cfg.width, cfg.height))
     hp, st = eye_pass(scene, org, dir, cfg.hitpoint_capacity, cfg.max_depth, 1,
-                      cfg.init_r2, newton_fn=newton, compact_schedule=cfg.eye_compact_schedule,
-                      grow=True)
+                      cfg.init_r2, newton_fn=newton, compact_schedule=cfg.eye_compact_schedule)
     photon_scene = scene.replace(bezier_compact_frac=cfg.bezier_compact_frac_photon)
     gen = torch.Generator(device=device).manual_seed(3)
     deps, _, _ = photon_trace_regen(photon_scene, gen, scene.light_pos, scene.light_color,

@@ -227,6 +227,14 @@ def winner_root(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor, solver
     return _WinnerRoot.apply(org, dir, ctrl, solver)
 
 
+def default_solver(newton_fn=None, iters: int = DEFAULT_NEWTON_ITERS,
+                   restarts: int = DEFAULT_RESTART_GRID):
+    """The winner-contract solver a Bezier hit uses: ``newton_fn``, or
+    :func:`solve_winner` at ``iters`` and ``restarts`` where it is None."""
+    return newton_fn if newton_fn is not None else partial(
+        solve_winner, iters=iters, restarts=restarts)
+
+
 def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
                      iters: int = DEFAULT_NEWTON_ITERS,
                      restarts: int = DEFAULT_RESTART_GRID,
@@ -252,8 +260,7 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     ctrl = obj.ctrl
     pmin, pmax = aabb_from_points(ctrl.reshape(obj.num_patches, 16, 3))
     obj_gate = slab_test(org, dir, pmin.amin(0), pmax.amax(0))
-    solver = newton_fn if newton_fn is not None else partial(
-        solve_winner, iters=iters, restarts=restarts)
+    solver = default_solver(newton_fn, iters, restarts)
 
     def winner_normal(d, u, v, pid):
         su, sv = patch_tangents(ctrl[pid.long()], u, v)

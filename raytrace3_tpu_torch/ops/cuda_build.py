@@ -89,6 +89,7 @@ class CudaKernel:
                  name: str | None = None):
         if name is not None:
             KERNELS[name] = self
+        self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)

@@ -1,29 +1,26 @@
 """One segment of the staged eye as hand-written CUDA kernels.
 
 ``csrc/eye.cu`` holds two kernels that run one segment of
-``render/eye.eye_segment`` at one slot a pixel around the Bezier compaction
-and the Newton kernel, which stay as they are (``geometry/bezier.solve_gated``),
-and the winners' rows, which ``csrc/walk.cu``'s ``bezier`` kernel writes as
-in the photon walk: ``hit`` (the nearest plane and sphere hit, the Bezier
-box gate) and ``shade`` (merge, the hit-point row, the next lane, the count
-of continuations dropped).  :class:`EyeScene` holds the scene's side, built
-once an eye pass; its ``segment`` is the CUDA path; its plain twin is the op
-code of ``render/eye.py`` (``eye_segment_plain``), which ``eye_segment``
-runs on CPU tensors, at more than one slot a pixel and under autograd.  The
-kernels replace no TPU kernel (see the source note).
+``render/eye.eye_segment`` at one slot a pixel: ``hit`` (the nearest plane
+and sphere hit, the Bezier box gate) and ``shade`` (merge, the hit-point
+row, the next lane, the count of continuations dropped).  The scene's
+tables, the rule that picks the kernels and the Bezier middle between the
+two (the compaction, Newton and ``csrc/walk.cu``'s row kernel) are the
+photon walk's (``ops/walk_kernel.py``: ``kernel_tables``, ``WalkScene.run``);
+:class:`SegmentLanes` holds the eye's lanes.  The plain twin is the op code
+of ``render/eye.py`` (``eye_segment_plain``).  The kernels replace no TPU
+kernel (see the source note).
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import partial
 
 import torch
 
-from ..geometry.bezier import solve_gated, solve_winner
 from . import walk_kernel
 from .cuda_build import CudaKernel
-from .walk_kernel import _p
+from .walk_kernel import pointer
 
 #: csrc/eye.cu's threads a block (kThreads).
 THREADS = 256
@@ -67,78 +64,28 @@ def eye_kernel_bytes(n: int, rays: int, solved: int) -> dict:
             "eye_shade": n * (79 + 81)}
 
 
-class EyeScene:
-    """The scene's side of the kernels, built once an eye pass: the walk's
-    tables (``walk_kernel.WalkScene``) with the eye's (objects, 13) material
-    ``table`` of ``eye._eye_material_lanes``.  ``segments`` counts the
-    segments run through the kernels."""
-
-    def __init__(self, scene, table: torch.Tensor):
-        self.scene = scene
-        self.tables = walk_kernel.WalkScene(scene, table, scene.light_pos, scene.light_color)
-        self.segments = 0
-
-    def segment(self, lanes, newton_fn=None):
-        """``render/eye.eye_segment`` at one slot a pixel on CUDA tensors:
-        (next lanes, continuations dropped, hit-point rows (w, 11)).
-        Nothing here reads the card's results on the host."""
-        w = SegmentLanes(self, lanes)
-        w.hit()
-        ctrl = self.tables.ctrl
-        if ctrl is not None:
-            scene = self.scene
-            solver = newton_fn if newton_fn is not None else partial(
-                solve_winner, iters=scene.newton_iters, restarts=scene.newton_restarts)
-            idx, d_c, hits = solve_gated(w.o, w.d, scene.bezier.ctrl, w.gate, solver,
-                                         scene.bezier_compact_frac)
-            walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, ctrl, kernel=BEZIER)
-        w.shade()
-        self.segments += 1
-        return w.out
-
-
-class SegmentLanes:
-    """The tensors of one eye segment and the ``EyeLanes`` struct that
-    points at them; :meth:`hit` and :meth:`shade` launch the kernels on
-    them (``hit`` zeroes the count that ``shade`` adds to).  ``hit`` writes
+class SegmentLanes(walk_kernel.Segment):
+    """One eye segment's lanes and the ``EyeLanes`` struct that points at
+    them, which ``walk_kernel.WalkScene.run`` launches on.  ``hit`` writes
     ``t_a``, ``obj_a``, ``ins_a``, ``gate`` and ``rows`` (the last two with
-    a Bezier object), which ``shade`` reads."""
+    a Bezier object), which ``shade`` reads; ``hit`` zeroes the count that
+    ``shade`` adds to."""
 
-    def __init__(self, es: EyeScene, lanes):
+    KERNELS = (HIT, BEZIER, SHADE)
+
+    def __init__(self, tables: walk_kernel.WalkScene, lanes):
         o, d, wgt, px, act = (x.contiguous() for x in lanes)
-        self.dev = dev = o.device
         N = o.shape[0]
-        _check(dev, (o, d, wgt, px, act), N)
-        v3 = lambda: torch.empty((N, 3), dtype=torch.float32, device=dev)
-        one = lambda dtype, shape=(N,): torch.empty(shape, dtype=dtype, device=dev)
-        bez = es.tables.ctrl is not None
-        self.o, self.d = o, d
-        self.gate = one(torch.bool) if bez else None
-        self.rows = one(torch.float32, (N, 7)) if bez else None
+        super().__init__(tables, [
+            (o, torch.float32, (N, 3)), (d, torch.float32, (N, 3)), (wgt, torch.float32, (N, 3)),
+            (px, torch.int32, (N,)), (act, torch.bool, (N,))])
+        one = lambda dtype, shape=(N,): torch.empty(shape, dtype=dtype, device=self.dev)
+        self.rays = (o, d)
         self.t_a, self.obj_a, self.ins_a = one(torch.float32), one(torch.int32), one(torch.bool)
-        out, pos, nd, nw = one(torch.float32, (N, 11)), v3(), v3(), v3()
+        out, pos, nd, nw = (one(torch.float32, s) for s in ((N, 11), (N, 3), (N, 3), (N, 3)))
         nv, dropped = one(torch.bool), one(torch.int32, ())
-        self.es = es
         self._keep = (wgt, px, act)
-        self.struct = _Lanes(*[_p(x) for x in (o, d, wgt, px, act, self.t_a, self.obj_a,
-                                               self.ins_a, self.gate, self.rows, out, pos, nd,
-                                               nw, nv, dropped)], N)
+        self.struct = _Lanes(*[pointer(x) for x in (o, d, wgt, px, act, self.t_a, self.obj_a,
+                                                    self.ins_a, self.gate, self.rows, out, pos,
+                                                    nd, nw, nv, dropped)], N)
         self.out = ((pos, nd, nw, lanes[3], nv), dropped, out)
-
-    def hit(self) -> None:
-        HIT.launch(self.dev, ctypes.addressof(self.es.tables.struct),
-                   ctypes.addressof(self.struct))
-
-    def shade(self) -> None:
-        SHADE.launch(self.dev, ctypes.addressof(self.es.tables.struct),
-                     ctypes.addressof(self.struct))
-
-
-def _check(dev, lanes, N: int) -> None:
-    o, d, wgt, px, act = lanes
-    want = [(o, torch.float32, (N, 3)), (d, torch.float32, (N, 3)),
-            (wgt, torch.float32, (N, 3)), (px, torch.int32, (N,)), (act, torch.bool, (N,))]
-    for x, dtype, shape in want:
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"eye kernel input {tuple(x.shape)} {x.dtype} on {x.device}, "
-                             f"expected {shape} {dtype} on {dev}")

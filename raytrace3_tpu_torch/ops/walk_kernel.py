@@ -1,25 +1,31 @@
-"""One segment of the regen photon walk as hand-written CUDA kernels.
+"""A walk's segment, the photon walk's or the staged eye's, as hand-written
+CUDA kernels: the rule that picks them, the scene's tables and the Bezier
+middle both walks share, and the photon walk's own lanes.
 
 ``csrc/walk.cu`` holds three kernels that run one segment of
-``render/photon.regen_segment`` around the Bezier compaction and the Newton
-kernel, which stay as they are (``geometry/bezier.solve_gated``):
-``refill`` (refill, the nearest plane and sphere hit, the Bezier box gate),
-``bezier`` (each compacted winner's normal, into its lane's row) and
-``shade`` (merge, record, roulette continuation).  :class:`WalkScene`
-holds the scene's side, built once a walk; its ``segment`` is the CUDA
-path; its plain twin is the op code of ``render/photon.py``
-(``regen_segment_plain``), which ``regen_segment`` runs on CPU tensors and
-under autograd.  The kernels replace no TPU kernel (see the source note).
+``render/photon.regen_segment``: ``refill`` (refill, the nearest plane and
+sphere hit, the Bezier box gate), ``bezier`` (each compacted winner's
+normal, into its lane's row) and ``shade`` (merge, record, roulette
+continuation); ``ops/eye_kernel.py`` runs the eye's two around the same
+``bezier``.  :func:`kernel_tables` is the one rule for whether a walk's
+segments run as kernels: once a walk, it returns the scene's tables
+(:class:`WalkScene`), None off the card or under autograd, or raises for
+card lanes the kernels cannot take.  :meth:`WalkScene.run` launches a segment: its first
+kernel, the Bezier compaction and Newton, which stay as they are
+(``geometry/bezier.solve_gated``), the rows, and its shade.  The plain twins
+are the op code of ``render/photon.py`` (``regen_segment_plain``) and
+``render/eye.py`` (``eye_segment_plain``).  The kernels replace no TPU
+kernel (see the source note).
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import partial
 
 import torch
 
-from ..geometry.bezier import solve_gated, solve_winner
+from ..core.types import grad_reaches
+from ..geometry.bezier import default_solver, solve_gated
 from .cuda_build import CudaKernel
 
 #: csrc/walk.cu's threads a block (kThreads).
@@ -27,7 +33,7 @@ THREADS = 256
 
 
 class _Scene(ctypes.Structure):
-    """csrc/walk.cu's ``WalkScene``."""
+    """csrc/surface.cuh's ``WalkScene``, the tables both walks' kernels read."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "plane_p0", "plane_n", "plane_umod", "plane_vmod", "sph_c", "sph_r", "sph_tu",
         "sph_tv", "mat", "obj_color", "obj_tex", "atlas", "light_pos", "light_color",
@@ -57,12 +63,38 @@ SHADE = CudaKernel("walk.cu", "rt3_walk_shade", [ctypes.c_void_p, ctypes.c_void_
                    name="walk_shade")
 
 
-def _p(t: torch.Tensor | None) -> int | None:
+def pointer(t: torch.Tensor | None) -> int | None:
+    """``t``'s device address for a kernel's struct (None for no tensor)."""
     return None if t is None else t.data_ptr()
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to(torch.float32).contiguous()
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lives where the segment kernels run (a CUDA device)."""
+    return x.is_cuda
+
+
+def kernel_tables(scene, table: torch.Tensor, light_pos: torch.Tensor,
+                  light_color: torch.Tensor, lanes) -> WalkScene | None:
+    """The kernels' tables (:class:`WalkScene`) for a walk whose first lanes
+    or carry are ``lanes``, or None where no kernel path exists: lanes off
+    the card (:func:`on_card`), or autograd reaching the scene, the lights
+    or the lanes (the kernels have no backward).  Later lanes derive only
+    from these and from draws without a gradient, so one call a walk
+    decides every segment.  Card lanes the kernels cannot take (not
+    float32, or a scene without a plane and a sphere) raise ValueError.
+    ``table``: the walk's material table."""
+    o = lanes[0]
+    if not on_card(o) or grad_reaches(scene, light_pos, light_color, lanes):
+        return None
+    if o.dtype != torch.float32 or scene.n_planes < 1 or scene.n_spheres < 1:
+        raise ValueError(f"the segment kernels take float32 lanes and a scene with a plane and "
+                         f"a sphere; got {o.dtype} lanes, {scene.n_planes} planes, "
+                         f"{scene.n_spheres} spheres")
+    return WalkScene(scene, table, light_pos, light_color)
 
 
 def segment_bytes(n: int, n_lights: int = 1) -> int:
@@ -94,15 +126,14 @@ def kernel_bytes(n: int, rays: int, solved: int, n_lights: int = 1) -> dict:
 
 
 class WalkScene:
-    """The scene's side of the kernels, built once a walk: its tables as
-    float32 (the material ``table`` of ``photon._material_lanes``) and the
-    lights, kept alive with the ``WalkScene`` struct that points at them."""
+    """The scene's side of the kernels, built once a walk by
+    :func:`kernel_tables`: its tables as float32 with a walk's material
+    ``table`` (``photon._material_lanes``'s or ``eye._eye_material_lanes``'s)
+    and the lights, kept alive with csrc/surface.cuh's ``WalkScene`` struct
+    that points at them."""
 
     def __init__(self, scene, table: torch.Tensor, light_pos: torch.Tensor,
                  light_color: torch.Tensor):
-        P, S = scene.n_planes, scene.n_spheres
-        if P < 1 or S < 1:
-            raise ValueError(f"the walk kernels need a plane and a sphere, got {P} and {S}")
         planes, spheres = scene.planes, scene.spheres
         self.scene = scene
         self.n_lights = light_pos.shape[0]
@@ -113,75 +144,105 @@ class WalkScene:
             _f32(x) for x in (scene.atlas, light_pos, light_color)]
         self.ctrl = _f32(scene.bezier.ctrl) if scene.has_bezier else None
         T, H, W = scene.atlas.shape[:3]
-        self.struct = _Scene(*[x.data_ptr() for x in self._keep], _p(self.ctrl), P, S,
-                             self.n_lights, scene.n_objects, T, H, W,
-                             0 if self.ctrl is None else self.ctrl.shape[0],
+        self.struct = _Scene(*[x.data_ptr() for x in self._keep], pointer(self.ctrl),
+                             scene.n_planes, scene.n_spheres, self.n_lights, scene.n_objects,
+                             T, H, W, 0 if self.ctrl is None else self.ctrl.shape[0],
                              int(scene.bezier_uv_quirk))
 
-    def segment(self, draws: tuple, carry, segs: int, debias_roulette: bool, newton_fn=None):
-        """``render/photon.regen_segment`` on CUDA tensors: (new carry,
-        record).  ``draws``: the segment's (z, phi, roulette, u1, u2).
-        Nothing here reads the card's results on the host."""
-        w = SegmentLanes(self, draws, carry, segs, debias_roulette)
-        w.refill()
+    def solve(self, w: Segment, newton_fn=None):
+        """The winner-contract solve of ``w``'s rays that pass its gate
+        (``solve_gated`` at the scene's compaction, with ``newton_fn`` or
+        the scene's default solver): (idx, directions, (t, u, v, patch,
+        hit))."""
+        s = self.scene
+        return solve_gated(*w.rays, s.bezier.ctrl, w.gate,
+                           default_solver(newton_fn, s.newton_iters, s.newton_restarts),
+                           s.bezier_compact_frac)
+
+    def run(self, w: Segment, newton_fn=None):
+        """Launch one segment on ``w``: its first kernel, with a Bezier
+        object the solve (:meth:`solve`) and its row kernel, then its shade;
+        return ``w.out``, the segment's output as its plain twin returns
+        it.  Nothing here reads the card's results on the host."""
+        first, rows, shade = w.KERNELS
+        w.launch(first)
         if self.ctrl is not None:
-            scene = self.scene
-            solver = newton_fn if newton_fn is not None else partial(
-                solve_winner, iters=scene.newton_iters, restarts=scene.newton_restarts)
-            idx, d_c, (t, u, v, pid, hit) = solve_gated(
-                w.o_r, w.d_r, scene.bezier.ctrl, w.gate, solver, scene.bezier_compact_frac)
-            bezier_rows(w.rows, idx, d_c, t, u, v, pid, hit, self.ctrl)
-        w.shade()
+            idx, d_c, hits = self.solve(w, newton_fn)
+            bezier_rows(w.rows, idx, d_c, *hits, self.ctrl, kernel=rows)
+        w.launch(shade)
         return w.out
 
 
-class SegmentLanes:
-    """The tensors of one segment and the ``WalkLanes`` struct that points
-    at them; :meth:`refill` and :meth:`shade` launch the kernels on them
-    (each launch writes only its outputs, so either may run again)."""
+class Segment:
+    """The tensors of one segment and the lanes struct that points at them,
+    which :meth:`WalkScene.run` launches on.  ``KERNELS``: the first kernel,
+    the Bezier row kernel's handle and the shade kernel; a subclass sets
+    ``rays`` (the rays the Bezier solve takes), ``struct`` and ``out``.
+    Each launch writes only its outputs, so any may run again."""
 
-    def __init__(self, ws: WalkScene, draws: tuple, carry, segs: int, debias_roulette: bool):
-        o, d, f, alive, depth, rr_off, emitted = carry
-        self.dev = dev = o.device
+    KERNELS: tuple
+
+    def __init__(self, tables: WalkScene, want) -> None:
+        """Check every (tensor, dtype, shape) of ``want`` against the first's
+        device, then make the Bezier gate and rows (None without a Bezier
+        object)."""
+        self.tables = tables
+        self.dev = dev = want[0][0].device
+        N = want[0][0].shape[0]
+        for x, dtype, shape in want:
+            if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+                raise ValueError(f"{type(self).__name__} input {tuple(x.shape)} {x.dtype} on {x.device}, "
+                                 f"expected {shape} {dtype} on {dev}")
+        bez = tables.ctrl is not None
+        self.gate = torch.empty((N,), dtype=torch.bool, device=dev) if bez else None
+        self.rows = torch.empty((N, 7), dtype=torch.float32, device=dev) if bez else None
+
+    def launch(self, kernel: CudaKernel) -> None:
+        kernel.launch(self.dev, ctypes.addressof(self.tables.struct),
+                      ctypes.addressof(self.struct))
+
+
+class SegmentLanes(Segment):
+    """One photon-walk segment (``render/photon.regen_segment``): the
+    carry, the segment's five draws and the ``WalkLanes`` struct."""
+
+    KERNELS = (REFILL, BEZIER, SHADE)
+
+    def __init__(self, tables: WalkScene, draws: tuple, carry, segs: int,
+                 debias_roulette: bool):
+        o, d, f, alive, depth, rr_off, emitted = c_in = [x.contiguous() for x in carry]
         N = o.shape[0]
-        L = ws.n_lights
+        L = tables.n_lights
+        draws = [x.contiguous() for x in draws]
+        super().__init__(tables, [
+            (o, torch.float32, (N, 3)), (d, torch.float32, (N, 3)), (f, torch.float32, (N, 3)),
+            (alive, torch.bool, (N,)), (depth, torch.int32, (N,)), (rr_off, torch.int32, ()),
+            (emitted, torch.float32, (L,))] + [(x, torch.float32, (N,)) for x in draws])
+        dev = self.dev
         blocks = -(-N // THREADS)
         lid = None
         if L > 1:
-            need = ~alive
-            rank = torch.cumsum(need.to(torch.int32), 0) - 1
+            rank = torch.cumsum((~alive).to(torch.int32), 0) - 1
             lid = ((rr_off + torch.clamp_min(rank, 0)) % L).contiguous()
-        z, phi, ur, u1, u2 = (x.contiguous() for x in draws)
-        c_in = [x.contiguous() for x in (o, d, f, alive, depth, rr_off, emitted)]
-        _check(dev, c_in, (z, phi, ur, u1, u2), N, L)
         v3 = lambda: torch.empty((N, 3), dtype=torch.float32, device=dev)
         one = lambda dtype, shape=(N,): torch.empty(shape, dtype=dtype, device=dev)
-        self.o_r, self.d_r, self.f_r = v3(), v3(), v3()
-        bez = ws.ctrl is not None
-        self.gate = one(torch.bool) if bez else None
-        self.rows = one(torch.float32, (N, 7)) if bez else None
+        o_r, d_r, f_r = v3(), v3(), v3()
+        self.rays = (o_r, d_r)
         pos, nrm, nd, nf = v3(), v3(), v3(), v3()
         valid, alive_out, depth_out = one(torch.bool), one(torch.bool), one(torch.int32)
         rr_off_out, emitted_out = one(torch.int32, ()), one(torch.float32, (L,))
         t_a, obj_a, ins_a = one(torch.float32), one(torch.int32), one(torch.bool)
         partial_ = one(torch.int32, (blocks,))
-        self.ws = ws
-        self._keep = (c_in, lid, z, phi, ur, u1, u2, t_a, obj_a, ins_a, partial_)
-        self.struct = _Lanes(*[_p(x) for x in c_in], _p(lid),
-                             *[_p(x) for x in (z, phi, ur, u1, u2)],
-                             *[_p(x) for x in (self.o_r, self.d_r, self.f_r, t_a, obj_a, ins_a,
-                                               self.gate, self.rows, partial_, pos, nrm, valid,
-                                               nd, nf, alive_out, depth_out, rr_off_out,
-                                               emitted_out)],
+        self._keep = (c_in, lid, draws, t_a, obj_a, ins_a, partial_)
+        self.struct = _Lanes(*[pointer(x) for x in c_in], pointer(lid),
+                             *[pointer(x) for x in draws],
+                             *[pointer(x) for x in (o_r, d_r, f_r, t_a, obj_a, ins_a, self.gate,
+                                                    self.rows, partial_, pos, nrm, valid, nd, nf,
+                                                    alive_out, depth_out, rr_off_out,
+                                                    emitted_out)],
                              N, segs, int(debias_roulette), blocks)
         self.out = ((pos, nd, nf, alive_out, depth_out, rr_off_out, emitted_out),
-                    (pos, nrm, self.f_r, valid))
-
-    def refill(self) -> None:
-        REFILL.launch(self.dev, ctypes.addressof(self.ws.struct), ctypes.addressof(self.struct))
-
-    def shade(self) -> None:
-        SHADE.launch(self.dev, ctypes.addressof(self.ws.struct), ctypes.addressof(self.struct))
+                    (pos, nrm, f_r, valid))
 
 
 def bezier_rows(rows: torch.Tensor, idx: torch.Tensor | None, dir: torch.Tensor,
@@ -196,15 +257,4 @@ def bezier_rows(rows: torch.Tensor, idx: torch.Tensor | None, dir: torch.Tensor,
     a = [x.contiguous() for x in (dir, t, u, v, pid.to(torch.int32), hit, ctrl)]
     if idx is not None:
         idx = idx.contiguous()
-    kernel.launch(dev, cap, rows.shape[0], _p(idx), *[_p(x) for x in a], _p(rows))
-
-
-def _check(dev, carry, draws, N: int, L: int) -> None:
-    o, d, f, alive, depth, rr_off, emitted = carry
-    want = [(o, torch.float32, (N, 3)), (d, torch.float32, (N, 3)), (f, torch.float32, (N, 3)),
-            (alive, torch.bool, (N,)), (depth, torch.int32, (N,)), (rr_off, torch.int32, ()),
-            (emitted, torch.float32, (L,))] + [(x, torch.float32, (N,)) for x in draws]
-    for x, dtype, shape in want:
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"walk kernel input {tuple(x.shape)} {x.dtype} on {x.device}, "
-                             f"expected {shape} {dtype} on {dev}")
+    kernel.launch(dev, cap, rows.shape[0], pointer(idx), *[pointer(x) for x in a], pointer(rows))

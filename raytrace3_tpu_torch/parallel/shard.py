@@ -115,7 +115,7 @@ def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
         hp_local, eye_stats = eye_pass(
             scene, org[lo:lo + ray_shard], dir[lo:lo + ray_shard], local_capacity,
             cfg.max_depth, cfg.slots, cfg.init_r2, newton_fn=newton_fn, pixel_offset=lo,
-            compact_schedule=cfg.eye_compact_schedule, grow=True)
+            compact_schedule=cfg.eye_compact_schedule)
         if hp_sharded:
             hp, emitted, dep_drops = photon_rounds_ring(
                 photon_scene, photons, hp_local, cfg.rounds, local_photons, mesh, **walk)

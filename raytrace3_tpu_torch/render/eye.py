@@ -14,15 +14,17 @@ and specular lobes continue.  Two schedules:
   buffer, and the hit points scatter once at the end.
 
 A continuation that finds no slot, a ray beyond a stage's width and a hit
-point beyond the buffer are dropped and counted in ``dropped``.  With
-``grow`` the staged wavefront drops no ray at a stage: a stage whose
+point beyond the buffer are dropped and counted in ``dropped``.  By default
+(``grow``) the staged wavefront drops no ray at a stage: a stage whose
 survivors outnumber its width is widened to hold them (one host read of
-the survivors a compaction), and the lanes added are ``eye_grown_lanes``.
+the survivors a compaction), and the lanes added are ``eye_grown_lanes``;
+``grow=False`` is JAX's dropping contract.
 
-On CUDA float32 lanes at one slot a pixel, where autograd reaches no input,
-a segment runs as the kernels of ``ops/eye_kernel.py`` around the Bezier
-compaction and Newton (``eye_kernel_segments`` counts those segments); on
-CPU tensors, at K > 1 and under autograd, as the plain op code
+At one slot a pixel, where ``ops/walk_kernel.kernel_tables`` (the rule the
+photon walk shares) hands a pass the scene's tables, every segment runs as
+the kernels of ``ops/eye_kernel.py`` around the Bezier compaction and
+Newton (``eye_kernel_segments`` counts those segments: every segment of
+a pass handed the tables); otherwise as the plain op code
 (:func:`eye_segment_plain`).
 """
 
@@ -30,10 +32,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.types import HitPoints, eta_from_refrn, grad_reaches, make_hitpoints
+from ..core.types import HitPoints, eta_from_refrn, make_hitpoints
 from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
-from ..ops import eye_kernel
+from ..ops import eye_kernel, walk_kernel
 from ..ops.compact import compact_indices
 from ..ops.onehot import take_rows
 
@@ -63,22 +65,6 @@ def _eye_material_lanes(scene: Scene):
     return fetch
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    """Whether ``x`` lives where the eye kernels run (a CUDA device)."""
-    return x.is_cuda
-
-
-def _kernel_scene(scene: Scene, fetch_mat, org: torch.Tensor, slots: int):
-    """The eye kernels' side of ``scene`` (``ops/eye_kernel.EyeScene``)
-    where they can run: CUDA float32 rays, one slot a pixel, a plane and a
-    sphere in the scene, and autograd reaching none of its tensors; else
-    None."""
-    if (slots == 1 and _on_card(org) and org.dtype == torch.float32 and scene.n_planes >= 1
-            and scene.n_spheres >= 1 and not grad_reaches(scene)):
-        return eye_kernel.EyeScene(scene, fetch_mat.table)
-    return None
-
-
 def eye_stage_widths(n_rays: int, schedule: tuple,
                      max_depth: int = MAX_DEPTH) -> list[tuple[int, int]]:
     """(segments, lane width) per stage of a compact schedule: each width
@@ -98,7 +84,7 @@ def eye_stage_widths(n_rays: int, schedule: tuple,
 def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
              capacity: int, max_depth: int = MAX_DEPTH, slots: int = 1,
              init_r2: float = INIT_R2, newton_fn=None, pixel_offset: int = 0,
-             compact_schedule: tuple = (), grow: bool = False):
+             compact_schedule: tuple = (), grow: bool = True):
     """Trace camera rays; return (HitPoints, {"count", "dropped",
     "eye_grown_lanes", "eye_kernel_segments"}).
 
@@ -109,7 +95,8 @@ def eye_pass(scene: Scene, org: torch.Tensor, dir: torch.Tensor,
     about ``frac * R`` lanes (:func:`eye_stage_widths`); it needs ``slots=1``.  Empty:
     the slot wavefront.  ``grow``: a stage whose survivors outnumber its
     width takes ``min(incoming width, survivors rounded up to 128)`` lanes
-    instead of dropping the rest (JAX's contract is ``grow=False``).
+    instead of dropping the rest.  ``grow=False``, JAX's dropping contract,
+    is there only for the tests that hold the staged eye to JAX's.
     """
     if compact_schedule:
         if slots != 1:
@@ -136,17 +123,13 @@ def eye_segment(scene: Scene, fetch_mat, lanes, newton_fn=None, slots: int = 1, 
     reflection are stably partitioned, valid first, into its K slots
     (eye.py:186-212); the valid ones that find no slot are dropped.
 
-    CUDA lanes at one slot run the kernels (``ops/eye_kernel.EyeScene
-    .segment``) unless autograd would reach an input; the rest run
-    :func:`eye_segment_plain`.  ``eye``: the scene's side of the kernels,
-    which the passes build once where the kernels can take the scene
-    (None: decided and built here).  The segment draws nothing.
+    ``eye``: the kernels' tables (``walk_kernel.WalkScene``), which a pass
+    gets once from ``walk_kernel.kernel_tables`` at one slot; with them
+    the segment runs as the kernels, without them as
+    :func:`eye_segment_plain`.  The segment draws nothing.
     """
-    if slots == 1 and _on_card(lanes[0]) and not grad_reaches(lanes):
-        if eye is None:
-            eye = _kernel_scene(scene, fetch_mat, lanes[0], slots)
-        if eye is not None:
-            return eye.segment(lanes, newton_fn)
+    if eye is not None:
+        return eye.run(eye_kernel.SegmentLanes(eye, lanes), newton_fn)
     return eye_segment_plain(scene, fetch_mat, lanes, newton_fn, slots)
 
 
@@ -228,8 +211,9 @@ def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
     the buffer stays in the autograd graph."""
     dev = org.device
     fetch_mat = _eye_material_lanes(scene)
-    eye = _kernel_scene(scene, fetch_mat, org, slots)
     lanes = _primary_lanes(org, dir, pixel_offset, slots)
+    eye = walk_kernel.kernel_tables(scene, fetch_mat.table, scene.light_pos, scene.light_color,
+                                    lanes) if slots == 1 else None
     buf = torch.zeros((capacity + 1, 11), dtype=org.dtype, device=dev)
     count = torch.zeros((), dtype=torch.int32, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
@@ -245,17 +229,17 @@ def _eye_pass_slots(scene, org, dir, capacity, max_depth, init_r2,
         count = new_count
     return _hitpoints(buf[:capacity], capacity, init_r2), {
         "count": count, "dropped": dropped, "eye_grown_lanes": 0,
-        "eye_kernel_segments": 0 if eye is None else eye.segments}
+        "eye_kernel_segments": 0 if eye is None else max_depth + 1}
 
 
 def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
-                      newton_fn, pixel_offset, schedule, grow: bool = False):
+                      newton_fn, pixel_offset, schedule, grow: bool = True):
     R = org.shape[0]
     dtype, dev = org.dtype, org.device
     fetch_mat = _eye_material_lanes(scene)
-    eye = _kernel_scene(scene, fetch_mat, org, 1)
-
     lanes = _primary_lanes(org, dir, pixel_offset)
+    eye = walk_kernel.kernel_tables(scene, fetch_mat.table, scene.light_pos, scene.light_color,
+                                    lanes)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
     segs_total = max_depth + 1
@@ -305,4 +289,4 @@ def _eye_pass_compact(scene, org, dir, capacity, max_depth, init_r2,
     count = torch.clamp_max(n_valid, capacity)
     dropped = dropped + torch.clamp_min(n_valid - capacity, 0)
     return hp, {"count": count, "dropped": dropped, "eye_grown_lanes": grown,
-                "eye_kernel_segments": 0 if eye is None else eye.segments}
+                "eye_kernel_segments": 0 if eye is None else segs_total}

@@ -10,10 +10,11 @@ probability (Obj.h:30-45).  Two walks:
   ``max_depth + 1`` segments (:func:`static_segment` each);
 * ``photon_trace_regen``, the persistent-lane walk: every segment first
   refills dead lanes with fresh photons from the lights, round-robin
-  (:func:`regen_segment` each).  On CUDA tensors the segment runs as the
-  kernels of ``ops/walk_kernel.py`` around the Bezier compaction and Newton;
-  on CPU tensors, and where autograd would reach an input, as the plain op
-  code (:func:`regen_segment_plain`).
+  (:func:`regen_segment` each).  Where ``ops/walk_kernel.kernel_tables``
+  (the rule the staged eye shares) hands a round the scene's tables, every
+  segment runs as the kernels of ``ops/walk_kernel.py`` around the Bezier
+  compaction and Newton; otherwise as the plain op code
+  (:func:`regen_segment_plain`).
 
 :func:`compact_deposits` gathers a round's valid deposits into a smaller
 buffer before the deposit op.
@@ -31,7 +32,7 @@ import torch
 
 from ..core.sampling import (TWO_PI, as_draws, cosine_hemisphere, roulette,
                              uniform_sphere)
-from ..core.types import Deposits, eta_from_refrn, grad_reaches
+from ..core.types import Deposits, eta_from_refrn
 from ..core.vecmath import normalize, reflect, refract
 from ..geometry.scene import Scene, intersect_scene
 from ..ops.compact import compact_indices
@@ -149,11 +150,8 @@ def photon_trace_regen(scene: Scene, rng, light_pos: torch.Tensor,
     if state is None:
         state = regen_state_init(L, n_photons, dev)
     fetch_mat = _material_lanes(scene)
-    walk = None
-    if dev.type == "cuda" and not grad_reaches(scene, light_pos, light_color):
-        walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
-
     carry = tuple(state) + (torch.zeros((L,), dtype=torch.float32, device=dev),)
+    walk = walk_kernel.kernel_tables(scene, fetch_mat.table, light_pos, light_color, carry)
     records = []
     for _ in range(segs):
         carry, rec = regen_segment(scene, fetch_mat, draws, light_pos,
@@ -175,21 +173,17 @@ def regen_segment(scene: Scene, fetch_mat, draws, light_pos: torch.Tensor,
     ``carry`` = (org, dir, flux, alive, depth, rr_offset, emitted), the JAX
     walk's scan carry; ``fetch_mat`` from :func:`_material_lanes`.  Returns
     (new carry, deposit record (pos, n, flux, valid)).  Draws its five
-    uniforms first, in the module's order.  CUDA lanes run the kernels
-    (``ops/walk_kernel.WalkScene.segment``) unless autograd would reach an
-    input; the rest run :func:`regen_segment_plain`.  ``walk``: the
-    scene's side of the kernels, which :func:`photon_trace_regen` builds
-    once a walk where autograd reaches neither the scene nor the lights
-    (None: decided and built here).
+    uniforms first, in the module's order.  ``walk``: the kernels' tables
+    (``walk_kernel.WalkScene``), which :func:`photon_trace_regen` gets once
+    a round from ``walk_kernel.kernel_tables``; with them the segment runs
+    as the kernels, without them as :func:`regen_segment_plain`.
     """
     N = carry[0].shape[0]
     uniforms = (draws.uniform((N,), -1.0, 1.0), draws.uniform((N,), 0.0, TWO_PI),
                 draws.uniform((N,)), draws.uniform((N,)), draws.uniform((N,)))
-    if carry[0].is_cuda and not grad_reaches(carry):
-        if walk is None and not grad_reaches(scene, light_pos, light_color):
-            walk = walk_kernel.WalkScene(scene, fetch_mat.table, light_pos, light_color)
-        if walk is not None:
-            return walk.segment(uniforms, carry, segs, debias_roulette, newton_fn)
+    if walk is not None:
+        return walk.run(walk_kernel.SegmentLanes(walk, uniforms, carry, segs, debias_roulette),
+                        newton_fn)
     return regen_segment_plain(scene, fetch_mat, uniforms, light_pos, light_color, carry,
                                segs, debias_roulette, newton_fn)
 

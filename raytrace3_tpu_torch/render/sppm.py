@@ -246,8 +246,8 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
     walk, ``eye_compact_schedule`` the staged eye wavefront (empty: the
     slot wavefront with ``slots`` slots a pixel), ``deposit_compact_frac``
     the deposit compaction, as in the JAX package, except that a stage of
-    the staged wavefront grows rather than drop rays (``eye_pass(grow=
-    True)``; ``eye_grown_lanes`` counts the lanes added).  Returns (image
+    the staged wavefront grows rather than drop rays (``eye_pass``'s
+    default ``grow``; ``eye_grown_lanes`` counts the lanes added).  Returns (image
     (R, 3), stats); the stats hold the pass's Bezier compaction tally
     (``utils.trace.BEZIER_COUNTERS``) beside the drop counters, and
     ``eye_kernel_segments``, the eye segments that ran through the eye's
@@ -258,7 +258,7 @@ def render_pass(scene: Scene, cam_org: torch.Tensor, cam_dir: torch.Tensor,
         with span("rt3.eye"):
             hp, stats = eye_pass(scene, cam_org, cam_dir, hitpoint_capacity,
                                  max_depth, slots, init_r2, newton_fn=newton_fn,
-                                 compact_schedule=eye_compact_schedule, grow=True)
+                                 compact_schedule=eye_compact_schedule)
         hp, emitted, dep_drops = photon_rounds(
             photon_scene if photon_scene is not None else scene, rng, hp,
             n_rounds, photons_per_round, max_depth, update_mode, deposit_fn,

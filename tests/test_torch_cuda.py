@@ -915,11 +915,12 @@ WALK_LIGHTS2 = ([[50.0, 60.0, 85.0], [30.0, 50.0, 120.0]],
 
 
 def walk_pairs(device, n_lights=1, debias=False, n=32768, segs=14, seed=7, scene="full"):
-    """The regen walk's ``segs`` segments through the kernels
-    (``walk_kernel.WalkScene.segment``) and through the plain twin
-    (``photon.regen_segment_plain``), each from the twin's carry and on the
-    same draws, on ``scene`` (``full`` at the photon pass's compaction):
-    yields (carry in, kernels' (carry, record), twin's (carry, record))."""
+    """The regen walk's ``segs`` segments through the kernels (the tables
+    ``walk_kernel.kernel_tables`` picks on the card, ``WalkScene.run``) and
+    through the plain twin (``photon.regen_segment_plain``), each from the
+    twin's carry and on the same draws, on ``scene`` (``full`` at the
+    photon pass's compaction): yields (carry in, kernels' (carry, record),
+    twin's (carry, record))."""
     from raytrace3_tpu_torch.render import photon
     from raytrace3_tpu_torch.ops import walk_kernel
     from raytrace3_tpu_torch.scenes import get_scene
@@ -933,12 +934,13 @@ def walk_pairs(device, n_lights=1, debias=False, n=32768, segs=14, seed=7, scene
     newton = newton_kernel.make_newton(10, 8)
     carry = photon.regen_state_init(n_lights, n // n_lights, device) + (
         torch.zeros((n_lights,), dtype=torch.float32, device=device),)
-    walk = walk_kernel.WalkScene(scene, fetch.table, lp, lc)
+    walk = walk_kernel.kernel_tables(scene, fetch.table, lp, lc, carry)
+    assert walk is not None
     g = torch.Generator(device=device).manual_seed(seed)
     draw = lambda lo=0.0, hi=1.0: torch.rand((n,), generator=g, device=device) * (hi - lo) + lo
     for _ in range(segs):
         uni = (draw(-1.0, 1.0), draw(0.0, 2 * np.pi), draw(), draw(), draw())
-        got = walk.segment(uni, carry, segs, debias, newton)
+        got = walk.run(walk_kernel.SegmentLanes(walk, uni, carry, segs, debias), newton)
         want = photon.regen_segment_plain(scene, fetch, uni, lp, lc, carry, segs, debias,
                                           newton)
         yield carry, got, want
@@ -1048,8 +1050,7 @@ def eye_pairs(device, monkeypatch, res, schedule=EYE_SCHEDULE, scene="full"):
 
     monkeypatch.setattr(eye, "eye_segment", both)
     _, st = eye.eye_pass(scene, org, d, int(res * res * 1.3),
-                         newton_fn=newton_kernel.make_newton(10, 8), compact_schedule=schedule,
-                         grow=True)
+                         newton_fn=newton_kernel.make_newton(10, 8), compact_schedule=schedule)
     monkeypatch.undo()
     return pairs, st
 

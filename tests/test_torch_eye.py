@@ -57,7 +57,7 @@ def test_eye_pass_compact_matches_jax(name):
     with pinned_segments(eye_steps=steps["eye"]) as report:
         hp_p, st_p = eye.eye_pass(port_scene(js), torch.as_tensor(np.array(org)),
                                   torch.as_tensor(np.array(d)), cap,
-                                  newton_fn=make_newton(), compact_schedule=sched)
+                                  newton_fn=make_newton(), compact_schedule=sched, grow=False)
     print(f"{name}: count {int(st_p['count'])}, {report}")
     assert report.segments["eye"] == 14
     assert report.lanes["self-hit flip"] <= MAX_FLIPS
@@ -233,24 +233,15 @@ def test_growing_changes_nothing_where_no_stage_overflows():
         assert torch.equal(getattr(hp_g, f), getattr(hp_c, f)), f
 
 
-def test_render_pass_grows_the_staged_eye(monkeypatch):
-    """Every render pass asks the eye to grow rather than drop, and reports
-    the lanes it added."""
+def test_render_pass_grows_the_staged_eye():
+    """A render pass's staged eye grows rather than drops (``eye_pass``'s
+    default), and the pass reports the lanes it added."""
     from raytrace3_tpu_torch.render import sppm
     from raytrace3_tpu_torch.render.camera import emit_rays
     from raytrace3_tpu_torch.scenes import cornell_specular, reference_camera
 
-    seen = []
-    real = sppm.eye_pass
-
-    def spy(*a, **k):
-        seen.append(k.get("grow"))
-        return real(*a, **k)
-
-    monkeypatch.setattr(sppm, "eye_pass", spy)
     scene = cornell_specular(atlas_res=16, device="cpu")
     org, d = emit_rays(reference_camera(32, 32, device="cpu"))
     _, st = sppm.render_pass(scene, org, d, torch.Generator().manual_seed(0), 1536, 1, 64,
                              max_depth=3, photon_regen=True, eye_compact_schedule=((1, 0.02),))
-    assert seen == [True]
     assert int(st["dropped"]) == 0 and st["eye_grown_lanes"] > 0

@@ -105,21 +105,27 @@ def test_debiased_regen_round_matches_jax_with_replayed_draws():
     _round_matches_jax(*LIGHTS2, n_photons=256, seed=5, debias=True)
 
 
-def test_regen_segment_under_autograd_takes_the_op_path():
+def test_regen_segment_under_autograd_takes_the_op_path(monkeypatch):
     """The kernels have no backward: with autograd on and an input that
-    requires grad, the wrapper takes the op path (here on the CPU always),
-    and the gradient of the round's deposited flux reaches the atlas and
-    the light colour through the segments."""
+    requires grad, the rule (``walk_kernel.kernel_tables``, here with the
+    CPU standing in for the card) hands the walk no tables, so it takes the
+    op path, and the gradient of the round's deposited flux reaches the
+    atlas and the light colour through the segments."""
+    from raytrace3_tpu_torch.ops import walk_kernel
+
     ps = port_scene(jscenes.full(atlas_res=16).replace(bezier_compact_frac=0.05))
     lc = ps.light_color.clone().requires_grad_(True)
     atlas = ps.atlas.clone().requires_grad_(True)
     ps = ps.replace(atlas=atlas)
     carry = (ps.light_pos.new_zeros((64, 3)),) * 3
-    assert photon.grad_reaches(ps, ps.light_pos, lc, carry)
-    with torch.no_grad():
-        assert not photon.grad_reaches(ps, ps.light_pos, lc, carry)
-    assert not photon.grad_reaches(ps.replace(atlas=ps.atlas.detach()), ps.light_pos,
-                                    lc.detach(), carry)
+    table = photon._material_lanes(ps).table
+    with monkeypatch.context() as m:
+        m.setattr(walk_kernel, "on_card", lambda x: True)
+        assert walk_kernel.kernel_tables(ps, table, ps.light_pos, lc, carry) is None
+        with torch.no_grad():
+            assert walk_kernel.kernel_tables(ps, table, ps.light_pos, lc, carry) is not None
+        assert walk_kernel.kernel_tables(ps.replace(atlas=ps.atlas.detach()), table,
+                                         ps.light_pos, lc.detach(), carry) is not None
     launches = launch_counts()
     dep, _, _ = photon.photon_trace_regen(ps, torch.Generator().manual_seed(1), ps.light_pos,
                                           lc, 256, None, 4, newton_fn=make_newton())
