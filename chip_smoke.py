@@ -144,14 +144,17 @@ with a non-zero exit when it fails:
      the micro's block deposit; and each sweep row's whole call against
      the same call through its kernel's plain twin (counts exactly, flux to
      DEPOSIT_FLUX_RTOL), its counts also equal across the rows.
- 24. (run after phase 2) the regen walk's three kernels (``walk.cu``:
-     ``walk_refill``, ``walk_bezier``, ``walk_shade``) against their plain
-     twin, the op code of ``photon.regen_segment_plain``, on the main
-     path's round at 131,072 lanes (the bench's) and at 1,048,576: 14
-     segments, each from the twin's carry on the same draws, every lane of
-     the carry and the record bit for bit; then each kernel's device time
-     beside its byte bound, the segment's least time, and a whole segment
-     through the kernels and through the twin.
+ 24. (run after phase 2) the regen walk's kernels (``walk.cu``:
+     ``walk_refill``, ``walk_compact``, ``walk_bezier``, ``walk_shade``)
+     against their plain twin, the op code of
+     ``photon.regen_segment_plain``, on the main path's round at 131,072
+     lanes (the bench's) and at 1,048,576: 14 segments, each from the
+     twin's carry on the same draws, every lane of the carry and the record
+     bit for bit, and ``walk_compact``'s launches a segment; then each
+     kernel's device time beside its byte bound (``walk_compact``'s a
+     middle, its outputs held bit for bit to the twin's sort and gathers),
+     the segment's least time, and a whole segment through the kernels and
+     through the twin.
  25. (run after phase 24) the staged eye's kernels (``eye.cu``: ``eye_hit``,
      ``eye_shade``, and ``walk.cu``'s row kernel as ``eye_bezier``) against
      their plain twin, the op code of ``eye.eye_segment_plain``, on the main
@@ -159,8 +162,10 @@ with a non-zero exit when it fails:
      staged schedule, every segment on the same lanes through both, the
      twin's output going on; every lane of the next lanes and the hit-point
      rows, and the count dropped, bit for bit.  Then each kernel's device
-     time on the first segment beside its byte bound, the segment's least
-     time, and a whole segment through the kernels and through the twin.
+     time on the first segment beside its byte bound (and ``walk_compact``'s
+     a middle, held bit for bit to the twin's sort and gathers), the
+     segment's least time, and a whole segment through the kernels and
+     through the twin.
 
 A kernel's ``ms`` is its device time (``device_ms``: a CUDA graph of 10
 launches, replayed); ``call_ms`` is one wrapper call between CUDA events,
@@ -425,8 +430,8 @@ SOURCES = ("newton.cu", "deposit_tile.cu", "deposit_lane.cu", "deposit_lane_bwd.
            "deposit_block.cu", "deposit_stream.cu", "walk.cu", "eye.cu")
 #: The kernels line's rows, each a ``CudaKernel``'s name (``ops/cuda_build.KERNELS``).
 KERNEL_ROWS = ("newton", "deposit_tile", "deposit_lane", "deposit_lane_bwd",
-               "deposit_block", "deposit_stream", "walk_refill", "walk_bezier", "walk_shade",
-               "eye_hit", "eye_bezier", "eye_shade")
+               "deposit_block", "deposit_stream", "walk_refill", "walk_compact", "walk_bezier",
+               "walk_shade", "eye_hit", "eye_bezier", "eye_shade")
 
 
 def zero_counters() -> None:
@@ -637,6 +642,7 @@ def phase_walk(card: str, device) -> tuple:
         segment = lambda uni, carry: ws.run(
             walk_kernel.SegmentLanes(ws, uni, carry, segs, debias), newton)
         bad, deposits = {}, 0
+        compacts = walk_kernel.COMPACT.launches
         for k in range(segs):
             uni = (draws.uniform((n,), -1.0, 1.0), draws.uniform((n,), 0.0, TWO_PI),
                    draws.uniform((n,)), draws.uniform((n,)), draws.uniform((n,)))
@@ -649,21 +655,25 @@ def phase_walk(card: str, device) -> tuple:
             if k == WALK_TIMED_SEGMENT:
                 timed = (uni, carry)
             carry = want[0]
+        per_seg = (walk_kernel.COMPACT.launches - compacts) / segs
         print(f"[24] walk, {n} lanes x {segs} segments, kernels against the plain twin from "
-              f"the twin's carry: lanes that differ {bad}; deposits {deposits}")
-        if any(bad.values()) or deposits < n:
+              f"the twin's carry: lanes that differ {bad}; deposits {deposits}; walk_compact "
+              f"launches a segment {per_seg}")
+        if any(bad.values()) or deposits < n or per_seg != 1.0:
             raise SystemExit("phase 24 failed: the walk kernels disagree with their plain twin")
         uni, carry = timed
         w = walk_kernel.SegmentLanes(ws, uni, carry, segs, debias)
         times, rays, solved = segment_kernel_times(ws, w, newton)
+        compact_ms = compaction_against_twin(24, ws, w)
         seg_ms = cuda_ms(lambda: segment(uni, carry), 5)
         plain_ms = cuda_ms(lambda: photon.regen_segment_plain(
             scene, fetch, uni, lp, lc, carry, segs, debias, newton), 3)
         nbytes = walk_kernel.kernel_bytes(n, rays, solved, L)
-        here = {name: kernel_row(name, "walk.cu", replaces, 0.0, times[name], plain_ms, 0,
-                                 nbytes[name]) for name in times}
+        here = {name: kernel_row(name, "walk.cu", *(
+            (COMPACT_REPLACES, 0.0, times[name], compact_ms) if name == walk_kernel.COMPACT.name
+            else (replaces, 0.0, times[name], plain_ms)), 0, nbytes[name]) for name in times}
         least_ms, _ = bound(0, walk_kernel.segment_bytes(n, L))
-        three = sum(r["ms"] for r in here.values())
+        three = sum(r["ms"] for k, r in here.items() if k != walk_kernel.COMPACT.name)
         print(f"[24] walk, {n} lanes, segment {WALK_TIMED_SEGMENT} ({solved} of {rays} "
               f"compacted slots hold a ray): " + "; ".join(
                   f"{k} {r['ms'] * 1e3:.2f} us device, {r['call_ms'] * 1e3:.1f} us a call, "
@@ -677,11 +687,15 @@ def phase_walk(card: str, device) -> tuple:
     return tuple(rows.values())
 
 
+#: What ``walk_compact`` stands beside in the JAX package (it replaces no TPU kernel).
+COMPACT_REPLACES = "none: the sort and gathers of raytrace3_tpu/ops/compact.py, compact_indices"
+
+
 def segment_kernel_times(tables, w, newton) -> tuple:
     """({kernel name: kernel_times}, Bezier slots, slots that hold a ray) of
-    one segment's three kernels on ``w`` (a ``walk_kernel.Segment``): its
-    first kernel, the row kernel on ``tables.solve``'s winners, its
-    shade."""
+    one segment's kernels on ``w`` (a ``walk_kernel.Segment``): its first
+    kernel, the middle's compaction, the row kernel on ``tables.solve``'s
+    winners, its shade."""
     from raytrace3_tpu_torch.ops import walk_kernel
 
     first, rows, shade = w.KERNELS
@@ -690,9 +704,40 @@ def segment_kernel_times(tables, w, newton) -> tuple:
     rays = hits[0].shape[0]
     solved = rays if idx is None else int((idx < w.rays[0].shape[0]).sum())
     bez = lambda: walk_kernel.bezier_rows(w.rows, idx, d_c, *hits, tables.ctrl, kernel=rows)
-    times = {first.name: kernel_times(lambda: w.launch(first)), rows.name: kernel_times(bez),
-             shade.name: kernel_times(lambda: w.launch(shade))}
+    times = {first.name: kernel_times(lambda: w.launch(first))}
+    if idx is not None:
+        times[walk_kernel.COMPACT.name] = kernel_times(lambda: tables.compact(w))
+    times.update({rows.name: kernel_times(bez), shade.name: kernel_times(lambda: w.launch(shade))})
     return times, rays, solved
+
+
+def compaction_against_twin(phase: int, tables, w) -> float:
+    """Hold ``tables.compact(w)``'s outputs (``w``'s first kernel run) bit
+    for bit to its plain twin's, ``bezier.compact_rays`` (the sort and
+    gathers of ``bezier.solve_gated``), and its gated count to the twin's;
+    print both times a middle and return the twin's call ms."""
+    from raytrace3_tpu_torch.geometry.bezier import compact_rays
+    from raytrace3_tpu_torch.ops import walk_kernel
+
+    org, dir = w.rays
+    R = org.shape[0]
+    idx, org_c, dir_c, _, total = tables.compact(w)
+    cap = idx.shape[0]
+    twin = lambda: compact_rays(org, dir, w.gate, cap)
+    i, o_c, d_c, key = twin()
+    gated = int(torch.searchsorted(key, torch.ones(1, dtype=key.dtype, device=key.device)))
+    same = (torch.equal(idx, i) and torch.equal(org_c, o_c) and torch.equal(dir_c, d_c)
+            and int(total) == gated)
+    ms, call_ms = kernel_times(lambda: tables.compact(w))
+    plain_ms = cuda_ms(twin, 5)
+    least_ms, _ = bound(0, walk_kernel.compact_bytes(R, cap, min(gated, cap)))
+    print(f"[{phase}] walk_compact, {R} lanes into {cap} slots ({gated} gated): bit for bit the "
+          f"twin's {same}; {ms * 1e3:.2f} us device a middle, {call_ms * 1e3:.1f} us a call, "
+          f"least {least_ms * 1e3:.2f} us ({ms / least_ms:.2f}x); the twin's sort and gathers "
+          f"{plain_ms * 1e3:.1f} us a call")
+    if not same:
+        raise SystemExit(f"phase {phase} failed: walk_compact disagrees with its plain twin")
+    return plain_ms
 
 
 def eye_differences(got, want) -> dict:
@@ -720,7 +765,7 @@ def phase_eye(card: str, device) -> tuple:
     .eye_kernel_bytes``), the segment's least time (``eye_segment_bytes``)
     and the whole segment through the kernels and through the twin.
     Returns the kernels line's three rows."""
-    from raytrace3_tpu_torch.ops import eye_kernel
+    from raytrace3_tpu_torch.ops import eye_kernel, walk_kernel
     from raytrace3_tpu_torch.ops.newton_kernel import make_newton
     from raytrace3_tpu_torch.render import eye
 
@@ -757,7 +802,10 @@ def phase_eye(card: str, device) -> tuple:
         raise SystemExit("phase 25 failed: the eye kernels disagree with their plain twin")
     lanes, _, _, es = pairs[EYE_TIMED_SEGMENT]
     n = lanes[0].shape[0]
-    times, rays, solved = segment_kernel_times(es, eye_kernel.SegmentLanes(es, lanes), newton)
+    w = eye_kernel.SegmentLanes(es, lanes)
+    times, rays, solved = segment_kernel_times(es, w, newton)
+    times.pop(walk_kernel.COMPACT.name)
+    compaction_against_twin(25, es, w)
     fetch = eye._eye_material_lanes(scene)
     seg_ms = cuda_ms(lambda: es.run(eye_kernel.SegmentLanes(es, lanes), newton), 5)
     plain_ms = cuda_ms(lambda: plain(scene, fetch, lanes, newton), 3)

@@ -1,12 +1,13 @@
 // One segment of the eye wavefront at one slot a pixel (render/eye.py,
-// eye_segment) as two kernels around the Bezier compaction, the Newton
-// kernel (csrc/newton.cu) and the winners' rows (walk.cu's rt3_walk_bezier),
-// which run between them unchanged:
+// eye_segment) as two kernels around the Bezier compaction (walk.cu's
+// rt3_walk_compact), the Newton kernel (csrc/newton.cu) and the winners'
+// rows (walk.cu's rt3_walk_bezier), which run between them unchanged:
 //
 //   rt3_eye_hit    one thread a lane: the nearest plane and sphere hit (t,
 //                  object, inside), the Bezier object's box gate that feeds
-//                  the compaction and the lane's Bezier row set to "no
-//                  root", for every lane, active or not, as
+//                  the compaction (walk.cu's rt3_walk_compact, which reads
+//                  each block's count of gated lanes) and the lane's Bezier
+//                  row set to "no root", for every lane, active or not, as
 //                  geometry/scene.intersect_scene does; block 0 zeroes the
 //                  count of continuations dropped;
 //   rt3_eye_shade  one thread a lane: the Bezier winner merged into the
@@ -65,6 +66,7 @@ struct EyeLanes {
   bool* ins_a;
   bool* gate;                // (N,) Bezier box gate
   float* rows;               // (N, 7) Bezier winner: t, u, v, hit, n
+  int* gated;                // (blocks,) Bezier-gated lanes a block
   float* out;                // (N, 11) hit-point rows
   float* pos;                // (N, 3) next lanes
   float* nd;
@@ -83,20 +85,26 @@ __global__ void __launch_bounds__(kThreads) eye_hit_kernel(const WalkScene sc,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (sc.B > 0) bezier_box(sc, &s_box[0][0], s_lohi);
   if (i == 0) *w.dropped = 0;
-  if (i >= w.n) return;
+  bool g = false;
+  if (i < w.n) {
+    const V3 o = ld3(w.o, i), d = ld3(w.d, i);
+    float best;
+    int obj;
+    bool inside;
+    analytic_hit(sc, o, d, best, obj, inside);
+    w.t_a[i] = best;
+    w.obj_a[i] = obj;
+    w.ins_a[i] = inside;
 
-  const V3 o = ld3(w.o, i), d = ld3(w.d, i);
-  float best;
-  int obj;
-  bool inside;
-  analytic_hit(sc, o, d, best, obj, inside);
-  w.t_a[i] = best;
-  w.obj_a[i] = obj;
-  w.ins_a[i] = inside;
-
+    if (sc.B > 0) {
+      g = box_gate(s_lohi, o, d);
+      w.gate[i] = g;
+      no_root(w.rows + 7LL * i);
+    }
+  }
   if (sc.B > 0) {
-    w.gate[i] = box_gate(s_lohi, o, d);
-    no_root(w.rows + 7LL * i);
+    const int gated = __syncthreads_count(g);
+    if (threadIdx.x == 0) w.gated[blockIdx.x] = gated;
   }
 }
 

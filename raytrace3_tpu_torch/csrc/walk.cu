@@ -1,12 +1,15 @@
 // One segment of the persistent-lane photon walk (render/photon.py,
-// regen_segment) as three kernels around the Bezier compaction and the
-// Newton kernel (csrc/newton.cu), which run between them unchanged:
+// regen_segment) as four kernels around the Newton kernel (csrc/newton.cu),
+// which runs between them unchanged:
 //
 //   rt3_walk_refill  one thread a lane: refill a dead lane from its light
 //                    (the drawn z and phi), the nearest plane and sphere hit
 //                    (t, object, inside), the Bezier object's box gate that
 //                    feeds the compaction, the lane's Bezier row set to "no
-//                    root", and each block's count of refilled lanes;
+//                    root", and each block's counts of refilled and of gated
+//                    lanes;
+//   rt3_walk_compact the gated rays gathered, in lane order, into Newton's
+//                    slots (below); the eye's segment (eye.cu) runs it too;
 //   rt3_walk_bezier  one thread a compacted ray: the winner's normal from its
 //                    (u, v, patch), written with (t, u, v, hit) into the row
 //                    of the lane it came from;
@@ -23,8 +26,7 @@
 // operators that XLA fuses into a few loops; the port ran it as about 530
 // PyTorch launches a segment, each a few microseconds of card time behind
 // 12-15 us of host issue, so the card idled through the walk.  These kernels
-// issue the segment in 3 launches beside the draws, the compaction and
-// Newton.
+// issue the segment in 4 launches beside the draws and Newton.
 //
 // What bounds them on an H100: bytes, and at a segment's size the launch.
 // A segment's inputs and outputs are 127 bytes a lane (carry in and out,
@@ -39,6 +41,23 @@
 // no bound.  The refill count is exact: a block
 // count (__syncthreads_count) and a reduction of the block counts in the
 // next kernel, with no atomics.
+//
+// The compaction (rt3_walk_compact) writes what geometry/bezier.solve_gated
+// hands Newton, bit for bit: the first `cap` gated lanes in ascending order
+// and then fill slots (index n) in `idx`, each slot's ray (a fill slot
+// carries lane n - 1's, as clamp_max(idx, n - 1) gathers it), and the whole
+// gated count, not capped, for the pass's tally.  It replaces a stable radix
+// sort of a 0/1 key and the gathers around it (about 25 host calls a
+// segment, the largest host chain left in a segment) by one launch with no
+// memset and no host read.  Design: the segment's first kernel writes each block's gated
+// count (__syncthreads_count, as the refill count); a compaction block takes
+// kCompactLanes lanes, sums the counts of the blocks before its own and of
+// all of them, ranks its lanes by warp ballots and popcounts and an
+// exclusive scan of the warps' counts, scatters the ranks below `cap`, and
+// writes its share of the fill slots.  What bounds it: bytes, a byte a lane
+// of gate and 32 a slot written (24 more read a gathered ray), and at a
+// segment's size the launch; every block reads all the block counts (4
+// bytes a 256 lanes, from L2).
 //
 // Numerics: built with -fmad=false and without fast math, and written in
 // the op path's operation order (render/photon.py, geometry/*.py,
@@ -59,6 +78,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Lanes a compaction block ranks: kCompactTiles of the first kernel's blocks.
+constexpr int kCompactLanes = 2048;
+constexpr int kCompactTiles = kCompactLanes / kThreads;
+static_assert(kCompactLanes % kThreads == 0 && kCompactTiles * kWarps == 64,
+              "the compaction scans 64 warp counts, two a lane of one warp");
 
 }  // namespace
 
@@ -87,6 +111,7 @@ struct WalkLanes {
   bool* gate;                // (N,) Bezier box gate
   float* rows;               // (N, 7) Bezier winner: t, u, v, hit, n
   int* partial;              // (blocks,) refilled lanes a block
+  int* gated;                // (blocks,) Bezier-gated lanes a block
   float* pos;                // (N, 3) carry and record out
   float* nrm;
   bool* valid;
@@ -138,16 +163,9 @@ __device__ __forceinline__ void dbern(float t, float b[4]) {
   b[3] = 3.0f * t * t;
 }
 
-__global__ void __launch_bounds__(kThreads) refill_kernel(const WalkScene sc, const WalkLanes w) {
-  __shared__ float s_box[6][kWarps];
-  __shared__ float s_lohi[6];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (sc.B > 0) bezier_box(sc, &s_box[0][0], s_lohi);
-  const bool need = i < w.n && !w.alive[i];
-  const int refills = __syncthreads_count(need);
-  if (threadIdx.x == 0) w.partial[blockIdx.x] = refills;
-  if (i >= w.n) return;
-
+// One lane of the refill kernel; returns its Bezier box gate.
+__device__ __forceinline__ bool refill_lane(const WalkScene& sc, const WalkLanes& w,
+                                            const float* s_lohi, int i, bool need) {
   V3 o, d, f;
   if (need) {
     const int l = sc.L == 1 ? 0 : (int)w.lid[i];
@@ -174,10 +192,119 @@ __global__ void __launch_bounds__(kThreads) refill_kernel(const WalkScene sc, co
   w.obj_a[i] = obj;
   w.ins_a[i] = inside;
 
+  if (sc.B == 0) return false;
+  const bool g = box_gate(s_lohi, o, d);
+  w.gate[i] = g;
+  no_root(w.rows + 7LL * i);
+  return g;
+}
+
+__global__ void __launch_bounds__(kThreads) refill_kernel(const WalkScene sc, const WalkLanes w) {
+  __shared__ float s_box[6][kWarps];
+  __shared__ float s_lohi[6];
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (sc.B > 0) bezier_box(sc, &s_box[0][0], s_lohi);
+  const bool need = i < w.n && !w.alive[i];
+  const int refills = __syncthreads_count(need);
+  if (threadIdx.x == 0) w.partial[blockIdx.x] = refills;
+  const bool g = i < w.n && refill_lane(sc, w, s_lohi, i, need);
   if (sc.B > 0) {
-    w.gate[i] = box_gate(s_lohi, o, d);
-    no_root(w.rows + 7LL * i);
+    const int gated = __syncthreads_count(g);
+    if (threadIdx.x == 0) w.gated[blockIdx.x] = gated;
   }
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void copy3(const float* src, long long from, float* dst,
+                                      long long to) {
+  dst[3 * to] = src[3 * from];
+  dst[3 * to + 1] = src[3 * from + 1];
+  dst[3 * to + 2] = src[3 * from + 2];
+}
+
+// geometry/bezier.solve_gated's compaction (see the note above): block b
+// ranks lanes [b * kCompactLanes, (b + 1) * kCompactLanes), the first
+// kernel's blocks b * kCompactTiles on.
+__global__ void __launch_bounds__(kThreads) compact_kernel(
+    int n, int cap, const bool* __restrict__ gate, const int* __restrict__ gated,
+    const float* __restrict__ org, const float* __restrict__ dir, long long* __restrict__ idx,
+    float* __restrict__ org_c, float* __restrict__ dir_c, int* __restrict__ total) {
+  __shared__ int s_part[2][kWarps];
+  __shared__ int s_off[kCompactTiles * kWarps];
+  __shared__ int s_before, s_all;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const int first = blockIdx.x * kCompactTiles;
+  // Gated lanes before this block's, and in all: the first kernel's counts.
+  int before = 0, all = 0;
+  for (int b = tid; b < blocks; b += kThreads) {
+    const int c = gated[b];
+    all += c;
+    if (b < first) before += c;
+  }
+  before = warp_sum(before);
+  all = warp_sum(all);
+  if (lane == 0) {
+    s_part[0][warp] = before;
+    s_part[1][warp] = all;
+  }
+  // Each tile of kThreads lanes: a ballot a warp, its count in s_off, in
+  // lane order (tile, then warp).
+  const long long base = (long long)blockIdx.x * kCompactLanes;
+  unsigned vote[kCompactTiles];
+#pragma unroll
+  for (int s = 0; s < kCompactTiles; ++s) {
+    const long long i = base + s * kThreads + tid;
+    vote[s] = __ballot_sync(0xffffffffu, i < n && gate[i]);
+    if (lane == 0) s_off[s * kWarps + warp] = __popc(vote[s]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // The exclusive scan of the 64 warp counts, two a lane.
+    const int a = s_off[2 * lane], b = s_off[2 * lane + 1];
+    int incl = a + b;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    s_off[2 * lane] = incl - a - b;
+    s_off[2 * lane + 1] = incl - b;
+    if (lane == 0) {
+      int sb = 0, sa = 0;
+      for (int k = 0; k < kWarps; ++k) {
+        sb += s_part[0][k];
+        sa += s_part[1][k];
+      }
+      s_before = sb;
+      s_all = sa;
+    }
+  }
+  __syncthreads();
+  before = s_before;
+  all = s_all;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < kCompactTiles; ++s) {
+    if (!((vote[s] >> lane) & 1u)) continue;
+    const int r = before + s_off[s * kWarps + warp] + __popc(vote[s] & below);
+    if (r >= cap) continue;
+    const long long i = base + s * kThreads + tid;
+    idx[r] = i;
+    copy3(org, i, org_c, r);
+    copy3(dir, i, dir_c, r);
+  }
+  // Fill slots [all, cap), spread over the grid, carry lane n - 1's ray.
+  for (long long j = (long long)all + (long long)blockIdx.x * kThreads + tid; j < cap;
+       j += (long long)gridDim.x * kThreads) {
+    idx[j] = n;
+    copy3(org, n - 1, org_c, j);
+    copy3(dir, n - 1, dir_c, j);
+  }
+  if (blockIdx.x == 0 && tid == 0) *total = all;
 }
 
 // geometry/bezier.intersect_bezier's winner normal (patch_tangents, the
@@ -311,6 +438,17 @@ extern "C" int rt3_walk_refill(const WalkScene* sc, const WalkLanes* w, void* st
       w->blocks != (w->n + kThreads - 1) / kThreads)
     return (int)cudaErrorInvalidValue;
   refill_kernel<<<w->blocks, kThreads, 0, (cudaStream_t)stream>>>(*sc, *w);
+  return (int)cudaGetLastError();
+}
+
+// `gated`: the first kernel's gated lanes a block of kThreads lanes (refill's
+// or eye.cu's hit's); `total` takes the whole gated count.
+extern "C" int rt3_walk_compact(int n, int cap, const bool* gate, const int* gated,
+                                const float* org, const float* dir, long long* idx, float* org_c,
+                                float* dir_c, int* total, void* stream) {
+  if (n < 1 || n > (1 << 28) || cap < 1 || cap > n) return (int)cudaErrorInvalidValue;
+  compact_kernel<<<(n + kCompactLanes - 1) / kCompactLanes, kThreads, 0, (cudaStream_t)stream>>>(
+      n, cap, gate, gated, org, dir, idx, org_c, dir_c, total);
   return (int)cudaGetLastError();
 }
 

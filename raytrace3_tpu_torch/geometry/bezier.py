@@ -291,25 +291,43 @@ def intersect_bezier(org: torch.Tensor, dir: torch.Tensor, obj: BezierObject,
     return torch.where(hit, t_best, MAX_DIST), hit, u_best, v_best, n
 
 
+def compact_lanes(R: int, compact_frac: float) -> int:
+    """The lanes a Bezier solve of ``R`` rays compacts its gated rays
+    into: ``max(8, int(R * compact_frac))``, or R (no compaction) for
+    ``compact_frac`` >= 1."""
+    return R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
+
+
 def solve_gated(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor, gate: torch.Tensor,
                 solver, compact_frac: float):
     """The winner-contract solve of the rays that pass the object gate:
     (idx, the solved rays' directions, (t, u, v, patch_id, hit)).
 
-    ``compact_frac`` < 1 gathers the gated rays, in order, into
-    ``max(8, int(R * compact_frac))`` lanes (``idx``: each lane's ray, R
-    for a fill lane) and solves those; otherwise every ray is solved and
-    ``idx`` is None.  Inside a pass's tally the compaction adds its gated
-    count."""
+    Where :func:`compact_lanes` is below R, gathers the gated rays, in
+    order, into that many lanes (``idx``: each lane's ray, R for a fill
+    lane, whose ray is ray R - 1) and solves those; otherwise every ray is
+    solved and ``idx`` is None.  Inside a pass's tally the compaction adds
+    its gated count.  The card's segment kernels compact in one kernel to
+    the same lanes (``ops/walk_kernel.WalkScene.solve``); this is their
+    plain twin."""
     R = org.shape[0]
-    cap = R if compact_frac >= 1.0 else max(8, int(R * compact_frac))
+    cap = compact_lanes(R, compact_frac)
     if cap >= R:
         return None, dir, winner_root(org, dir, ctrl, solver)
-    idx, key = compact_indices_keyed(gate, cap, fill=R)            # (cap,)
+    idx, org_c, dir_c, key = compact_rays(org, dir, gate, cap)
     count_bezier_compaction(key, cap)
-    od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
-    org_c, dir_c = od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous()
     return idx, dir_c, winner_root(org_c, dir_c, ctrl, solver)
+
+
+def compact_rays(org: torch.Tensor, dir: torch.Tensor, gate: torch.Tensor, cap: int):
+    """The gated rays gathered, in order, into ``cap`` lanes: (idx (cap,),
+    their origins and directions (cap, 3), the sorted key the lanes are
+    ranked by); a fill lane's index is R and its ray is ray R - 1.  The
+    plain twin of the card's ``walk_compact`` kernel."""
+    R = org.shape[0]
+    idx, key = compact_indices_keyed(gate, cap, fill=R)            # (cap,)
+    od_c = torch.cat([org, dir], 1)[torch.clamp_max(idx, R - 1)]
+    return idx, od_c[:, 0:3].contiguous(), od_c[:, 3:6].contiguous(), key
 
 
 def load_bpt(path: str, scale: float = 1.0, transform: np.ndarray | None = None,

@@ -2,11 +2,12 @@
 
 ``csrc/eye.cu`` holds two kernels that run one segment of
 ``render/eye.eye_segment`` at one slot a pixel: ``hit`` (the nearest plane
-and sphere hit, the Bezier box gate) and ``shade`` (merge, the hit-point
-row, the next lane, the count of continuations dropped).  The scene's
-tables, the rule that picks the kernels and the Bezier middle between the
-two (the compaction, Newton and ``csrc/walk.cu``'s row kernel) are the
-photon walk's (``ops/walk_kernel.py``: ``kernel_tables``, ``WalkScene.run``);
+and sphere hit, the Bezier box gate and each block's count of gated lanes)
+and ``shade`` (merge, the hit-point row, the next lane, the count of
+continuations dropped).  The scene's tables, the rule that picks the
+kernels and the Bezier middle between the two (``csrc/walk.cu``'s
+compaction, Newton and ``csrc/walk.cu``'s row kernel) are the photon
+walk's (``ops/walk_kernel.py``: ``kernel_tables``, ``WalkScene.run``);
 :class:`SegmentLanes` holds the eye's lanes.  The plain twin is the op code
 of ``render/eye.py`` (``eye_segment_plain``).  The kernels replace no TPU
 kernel (see the source note).
@@ -29,8 +30,8 @@ THREADS = 256
 class _Lanes(ctypes.Structure):
     """csrc/eye.cu's ``EyeLanes``."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "o", "d", "wgt", "px", "act", "t_a", "obj_a", "ins_a", "gate", "rows", "out", "pos",
-        "nd", "nw", "nv", "dropped")] + [("n", ctypes.c_int)]
+        "o", "d", "wgt", "px", "act", "t_a", "obj_a", "ins_a", "gate", "rows", "gated", "out",
+        "pos", "nd", "nw", "nv", "dropped")] + [("n", ctypes.c_int)]
 
 
 HIT = CudaKernel("eye.cu", "rt3_eye_hit", [ctypes.c_void_p, ctypes.c_void_p], name="eye_hit")
@@ -67,9 +68,9 @@ def eye_kernel_bytes(n: int, rays: int, solved: int) -> dict:
 class SegmentLanes(walk_kernel.Segment):
     """One eye segment's lanes and the ``EyeLanes`` struct that points at
     them, which ``walk_kernel.WalkScene.run`` launches on.  ``hit`` writes
-    ``t_a``, ``obj_a``, ``ins_a``, ``gate`` and ``rows`` (the last two with
-    a Bezier object), which ``shade`` reads; ``hit`` zeroes the count that
-    ``shade`` adds to."""
+    ``t_a``, ``obj_a``, ``ins_a``, ``gate``, ``rows`` and ``gated`` (the
+    last three with a Bezier object), which ``shade`` (and the compaction)
+    read; ``hit`` zeroes the count that ``shade`` adds to."""
 
     KERNELS = (HIT, BEZIER, SHADE)
 
@@ -86,6 +87,6 @@ class SegmentLanes(walk_kernel.Segment):
         nv, dropped = one(torch.bool), one(torch.int32, ())
         self._keep = (wgt, px, act)
         self.struct = _Lanes(*[pointer(x) for x in (o, d, wgt, px, act, self.t_a, self.obj_a,
-                                                    self.ins_a, self.gate, self.rows, out, pos,
-                                                    nd, nw, nv, dropped)], N)
+                                                    self.ins_a, self.gate, self.rows, self.gated,
+                                                    out, pos, nd, nw, nv, dropped)], N)
         self.out = ((pos, nd, nw, lanes[3], nv), dropped, out)

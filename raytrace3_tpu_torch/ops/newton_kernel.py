@@ -318,7 +318,11 @@ def drain_schedule(open_pairs: torch.Tensor, restarts: int) -> dict:
                 lane_fill=int(x.sum()) * restarts / max(n_steps * THREADS, 1))
 
 
-def _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps):
+#: The winner contract's output types, in order (t, u, v, patch_id, hit).
+OUT_DTYPES = (torch.float32,) * 3 + (torch.int32, torch.bool)
+
+
+def _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps, out=None):
     dev = org.device
     R, B = org.shape[0], ctrl.shape[0]
     check("org", org, torch.float32, (R, 3), dev)
@@ -327,11 +331,12 @@ def _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps):
     if not 1 <= B <= MAX_PATCHES:
         raise ValueError(f"the kernel takes 1..{MAX_PATCHES} patches, got {B}")
     gu, gv = restart_grid_shape(restarts)
-    t = torch.empty((R,), dtype=torch.float32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    pid = torch.empty((R,), dtype=torch.int32, device=dev)
-    hit = torch.empty((R,), dtype=torch.bool, device=dev)
+    if out is None:
+        out = tuple(torch.empty((R,), dtype=x, device=dev) for x in OUT_DTYPES)
+    else:
+        for name, x, dtype in zip(("t", "u", "v", "pid", "hit"), out, OUT_DTYPES):
+            check(name, x, dtype, (R,), dev)
+    t, u, v, pid, hit = out
     if R > 0:
         KERNEL.launch(dev, ptr(org), ptr(dir), ptr(ctrl), R, B, restarts, gu,
                       gv, iters, residual2_eps, ptr(t), ptr(u), ptr(v),
@@ -341,15 +346,19 @@ def _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps):
 
 def solve(org: torch.Tensor, dir: torch.Tensor, ctrl: torch.Tensor,
           iters: int = 10, restarts: int = DEFAULT_RESTARTS,
-          residual2_eps: float = M_EPS):
+          residual2_eps: float = M_EPS, out=None):
     """Winner contract ``(t, u, v, patch_id, hit)``, each (R,).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`solve_plain`.  ``restarts`` is the total per patch and must
-    divide 128.
+    divide 128.  ``out``: on the card, five (R,) tensors of
+    :data:`OUT_DTYPES` for the kernel to write and return, in place of new
+    ones.
     """
     if org.is_cuda:
-        return _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps)
+        return _solve_cuda(org, dir, ctrl, iters, restarts, residual2_eps, out)
+    if out is not None:
+        raise ValueError("out is for the card's kernel")
     if org.device.type == "cpu":
         restart_grid_shape(restarts)
         return solve_plain(org, dir, ctrl, iters, restarts, residual2_eps)

@@ -19,11 +19,13 @@ pass's spans, each placed with ``with`` at its call site:
 =================  ===============================================  ==========
 
 :func:`bezier_tally` opens a tally for one pass.  While it is open, each
-compacted Bezier call (``geometry.bezier.intersect_bezier`` with fewer
-lanes than rays) keeps its gated-ray count on the device
-(:meth:`BezierTally.add`: one search of the compaction's sorted key, no
-host read), and :meth:`BezierTally.fold` folds the counts into the pass's
-stats:
+compacted Bezier call keeps its gated-ray count on the device, with no host
+read, in a slot the tally hands out (:meth:`BezierTally.slot`): the op
+code's (``geometry.bezier.solve_gated``) writes one search of the
+compaction's sorted key there (:meth:`BezierTally.add`), the card's
+segment kernels (``ops.walk_kernel.WalkScene.solve``) their compaction's
+count (:func:`bezier_count_slot`).  :meth:`BezierTally.fold` folds the
+counts into the pass's stats:
 
 * ``bezier_overflow``: sum of max(gated - lanes, 0), the gated rays that
   found no lane and were read as misses;
@@ -56,9 +58,9 @@ def span(name: str):
 class BezierTally:
     """One pass's counts of the Bezier compaction, kept on the device.
 
-    Each count is a ``searchsorted`` written straight into a slot of an
-    int32 buffer (one launch a compacted call, nothing to stack at the
-    end); the buffer grows by :data:`CHUNK` slots when full."""
+    Each count is written straight into a slot of an int32 buffer (one
+    launch a compacted call, nothing to stack at the end); the buffer
+    grows by :data:`CHUNK` slots when full."""
 
     #: Slots a buffer chunk holds (a pass compacts (depth + 1) x (rounds + 1)
     #: times at most).
@@ -69,18 +71,22 @@ class BezierTally:
         self._chunks = []
         self._one = None
 
+    def slot(self, lanes: int, device) -> torch.Tensor:
+        """The (1,) int32 slot, on ``device``, that one compaction into
+        ``lanes`` lanes writes its whole gated count into."""
+        i = len(self.lanes) % self.CHUNK
+        if i == 0:
+            self._chunks.append(torch.empty(self.CHUNK, dtype=torch.int32, device=device))
+        self.lanes.append(lanes)
+        return self._chunks[-1][i:i + 1]
+
     def add(self, sorted_key: torch.Tensor, lanes: int) -> None:
         """Count the gated rays of a compaction into ``lanes`` lanes from
         its ascending key (0 for a gated ray, 1 otherwise)."""
-        i = len(self.lanes) % self.CHUNK
-        if i == 0:
-            dev = sorted_key.device
-            self._chunks.append(torch.empty(self.CHUNK, dtype=torch.int32, device=dev))
-            if self._one is None:
-                self._one = torch.ones(1, dtype=torch.int32, device=dev)
+        if self._one is None:
+            self._one = torch.ones(1, dtype=torch.int32, device=sorted_key.device)
         torch.searchsorted(sorted_key, self._one, out_int32=True,
-                           out=self._chunks[-1][i:i + 1])
-        self.lanes.append(lanes)
+                           out=self.slot(lanes, sorted_key.device))
 
     def fold(self, device) -> dict:
         """The counts as :data:`BEZIER_COUNTERS`, int32 device scalars (a
@@ -110,6 +116,13 @@ def bezier_tally():
         yield tally
     finally:
         _TALLY.reset(token)
+
+
+def bezier_count_slot(lanes: int, device) -> torch.Tensor | None:
+    """The open tally's slot for a compaction into ``lanes`` lanes
+    (:meth:`BezierTally.slot`), or None with no tally open."""
+    tally = _TALLY.get()
+    return None if tally is None else tally.slot(lanes, device)
 
 
 def count_bezier_compaction(sorted_key: torch.Tensor, lanes: int) -> None:

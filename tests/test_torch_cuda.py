@@ -14,7 +14,8 @@ exactly; deposit flux sums (tile, block, stream and lane deposits, the
 lane transpose) differ only in summation order (rtol 1e-5; the stream and
 lane deposits' and the lane transpose's against their twins summed in
 float64).  The lane transpose adds without atomics, so two calls agree bit
-for bit.
+for bit.  The Bezier compaction only moves data, so it equals
+``bezier.solve_gated``'s exactly.
 """
 
 import numpy as np
@@ -1126,3 +1127,136 @@ def test_eye_takes_the_op_path_under_autograd(cuda_device):
     assert _eye_launches()["shade"] == before["shade"] + 14
     assert int(st_k["count"]) == int(st["count"])
     assert torch.equal(hp_k.valid, hp.valid) and torch.equal(hp_k.pos, hp.pos)
+
+
+#: Planted Bezier gates for the card's compaction: (rays, compaction
+#: fraction, gated lanes); the lanes a solve compacts into are
+#: ``bezier.compact_lanes(rays, fraction)``.
+COMPACT_CASES = {
+    "none-gated": (5000, 0.05, 0),
+    "all-gated": (5000, 0.05, 5000),
+    "gated-is-cap": (5000, 0.05, 250),
+    "gated-over-cap": (5000, 0.05, 400),
+    "cap-at-floor": (100, 0.05, 5),
+    "cap-at-floor-over": (100, 0.05, 12),
+    "rays-not-a-multiple-of-256": (3 * 2048 + 77, 0.09, 300),
+    **{f"{n}-at-{frac}": (n, frac, int(0.6 * n * frac))
+       for n in (131072, 262144, 1048576) for frac in (0.05, 0.09)},
+}
+
+
+def _recording_solver(seen: list):
+    """A winner-contract solver that records the rays it is handed and
+    returns a no-root winner for each."""
+    def solve(org, dir, ctrl):
+        seen.append((org.clone(), dir.clone()))
+        R = org.shape[0]
+        z = torch.zeros((R,), dtype=torch.float32, device=org.device)
+        return (z, z.clone(), z.clone(), torch.zeros((R,), dtype=torch.int32, device=org.device),
+                torch.zeros((R,), dtype=torch.bool, device=org.device))
+    return solve
+
+
+@pytest.mark.parametrize("n, frac, gated", list(COMPACT_CASES.values()), ids=list(COMPACT_CASES))
+def test_walk_compact_is_solve_gated_bit_for_bit(cuda_device, n, frac, gated):
+    """``WalkScene.solve``'s compaction (``walk_compact``) on planted gates,
+    fed the block counts a segment's first kernel writes
+    (``walk_kernel.block_counts``), against ``bezier.solve_gated``: the
+    indices (gated lanes in order, then fill slots R), the rays handed to
+    the solver (a fill slot carries ray R - 1's), the directions returned
+    and the pass tally's three counters, bit for bit."""
+    from types import SimpleNamespace
+
+    from raytrace3_tpu_torch.geometry.bezier import compact_lanes, solve_gated
+    from raytrace3_tpu_torch.ops import walk_kernel
+    from raytrace3_tpu_torch.render import photon
+    from raytrace3_tpu_torch.scenes import full
+    from raytrace3_tpu_torch.utils import trace
+
+    scene = full(atlas_res=16, device=cuda_device).replace(bezier_compact_frac=frac)
+    tables = walk_kernel.WalkScene(scene, photon._material_lanes(scene).table,
+                                   scene.light_pos, scene.light_color)
+    g = torch.Generator(device=cuda_device).manual_seed(n + gated)
+    org = torch.randn((n, 3), generator=g, device=cuda_device) * 50.0
+    dir = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=cuda_device), dim=1)
+    gate = torch.zeros((n,), dtype=torch.bool, device=cuda_device)
+    gate[torch.randperm(n, generator=g, device=cuda_device)[:gated]] = True
+    counts = tables.gated_counts(n)
+    counts[:-(-n // walk_kernel.THREADS)] = walk_kernel.block_counts(gate)
+    w = SimpleNamespace(rays=(org, dir), gate=gate, gated=counts)
+    cap = compact_lanes(n, frac)
+    assert cap < n
+
+    seen_k, seen_p = [], []
+    before = walk_kernel.COMPACT.launches
+    with trace.bezier_tally() as tally_k:
+        idx_k, dir_k, _ = tables.solve(w, _recording_solver(seen_k))
+    with trace.bezier_tally() as tally_p:
+        idx_p, dir_p, _ = solve_gated(org, dir, scene.bezier.ctrl, gate,
+                                      _recording_solver(seen_p), frac)
+    torch.cuda.synchronize()
+    assert walk_kernel.COMPACT.launches == before + 1
+    assert idx_k.dtype == torch.int64 and idx_k.shape == (cap,)
+    assert torch.equal(idx_k, idx_p) and torch.equal(dir_k, dir_p)
+    assert torch.equal(seen_k[0][0], seen_p[0][0]) and torch.equal(seen_k[0][1], seen_p[0][1])
+    fold = lambda t: {k: int(v) for k, v in t.fold(cuda_device).items()}
+    assert fold(tally_k) == fold(tally_p) == {
+        "bezier_overflow": max(gated - cap, 0), "bezier_lanes_used": min(gated, cap),
+        "bezier_lanes": cap}
+
+
+@pytest.mark.parametrize("walk", ["photon", "eye"])
+def test_the_card_middle_compacts_in_one_launch(cuda_device, monkeypatch, walk):
+    """On the card a walk's Bezier middle never reaches ``solve_gated``, its
+    sort or ``winner_root``: ``walk_compact`` launches once a segment, the
+    pass tally takes one count a launch, and a segment's first kernel
+    writes the gated lanes a block that the compaction reads."""
+    from raytrace3_tpu_torch.geometry import bezier
+    from raytrace3_tpu_torch.ops import eye_kernel, walk_kernel
+    from raytrace3_tpu_torch.render import eye, photon
+    from raytrace3_tpu_torch.render.camera import emit_rays
+    from raytrace3_tpu_torch.scenes import full, reference_camera
+    from raytrace3_tpu_torch.utils import trace
+
+    def refuse(*_, **__):
+        raise AssertionError("the card's Bezier middle reached the op code's")
+
+    for name in ("solve_gated", "compact_indices_keyed", "winner_root"):
+        monkeypatch.setattr(bezier, name, refuse)
+    newton = newton_kernel.make_newton(10, 8)
+    scene = full(atlas_res=32, device=cuda_device).replace(bezier_compact_frac=0.05)
+    before = walk_kernel.COMPACT.launches
+    with trace.bezier_tally() as tally:
+        if walk == "photon":
+            photon.photon_trace_regen(scene, torch.Generator(device=cuda_device).manual_seed(5),
+                                      scene.light_pos, scene.light_color, 8192, None, 13,
+                                      newton_fn=newton)
+        else:
+            org, d = emit_rays(reference_camera(64, 64, device=cuda_device))
+            _, st = eye.eye_pass(scene, org, d, 64 * 64 * 2, newton_fn=newton,
+                                 compact_schedule=EYE_SCHEDULE)
+            assert st["eye_kernel_segments"] == 14
+    torch.cuda.synchronize()
+    assert walk_kernel.COMPACT.launches - before == 14 == len(tally.lanes)
+
+    n = 4000                        # the eye's 64^2 rays; not a multiple of 256
+    if walk == "photon":
+        fetch = photon._material_lanes(scene)
+        carry = photon.regen_state_init(1, n, cuda_device) + (
+            torch.zeros((1,), device=cuda_device),)
+        tables = walk_kernel.kernel_tables(scene, fetch.table, scene.light_pos,
+                                           scene.light_color, carry)
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        u = torch.rand((5, n), generator=g, device=cuda_device)
+        uni = (u[0] * 2.0 - 1.0, u[1] * (2 * np.pi), u[2], u[3], u[4])
+        w = walk_kernel.SegmentLanes(tables, uni, carry, 14, False)
+    else:
+        fetch = eye._eye_material_lanes(scene)
+        lanes = eye._primary_lanes(org[:n], d[:n], 0)
+        tables = walk_kernel.kernel_tables(scene, fetch.table, scene.light_pos,
+                                           scene.light_color, lanes)
+        w = eye_kernel.SegmentLanes(tables, lanes)
+    w.launch(w.KERNELS[0])
+    torch.cuda.synchronize()
+    assert int(w.gate.sum()) > 0
+    assert torch.equal(w.gated[:-(-n // walk_kernel.THREADS)], walk_kernel.block_counts(w.gate))

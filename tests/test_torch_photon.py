@@ -27,6 +27,7 @@ from raytrace3_tpu.render import light as jlight
 from raytrace3_tpu.render import photon as jphoton
 
 from raytrace3_tpu_torch.core.sampling import ReplayDraws
+from raytrace3_tpu_torch.ops import walk_kernel
 from raytrace3_tpu_torch.ops.cuda_build import launch_counts, launches_since
 from raytrace3_tpu_torch.ops.newton_kernel import make_newton
 from raytrace3_tpu_torch.render import light, photon
@@ -219,6 +220,42 @@ def test_walk_kernel_structs_match_the_source():
     for name, cls, text in (("WalkScene", walk_kernel._Scene, header),
                             ("WalkLanes", walk_kernel._Lanes, src)):
         assert c_struct_fields(text, name) == list(cls._fields_), name
+
+
+def test_walk_compact_constants_match_the_source():
+    """The compaction kernel's threads a block and lanes a block in
+    csrc/walk.cu are ``ops/walk_kernel.py``'s, and its lanes a block are
+    whole blocks of the first kernel, whose gated counts it reads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(walk_kernel.__file__).parent.parent / "csrc" / "walk.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert (const("kThreads"), const("kCompactLanes")) == (walk_kernel.THREADS,
+                                                           walk_kernel.COMPACT_LANES)
+    assert walk_kernel.COMPACT_LANES % walk_kernel.THREADS == 0
+    assert walk_kernel.COMPACT.symbol == "rt3_walk_compact"
+    assert walk_kernel.COMPACT.name == "walk_compact"
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 3 * walk_kernel.COMPACT_LANES + 77])
+def test_block_counts_count_each_blocks_gated_lanes(n):
+    """``walk_kernel.block_counts``, the plain twin of the gated lanes a
+    block a segment's first kernel writes: one int32 count a block of
+    ``THREADS`` lanes, the last block cut at ``n``."""
+    gate = torch.rand((n,), generator=torch.Generator().manual_seed(n)) < 0.3
+    T = walk_kernel.THREADS
+    want = [int(gate[b:b + T].sum()) for b in range(0, n, T)]
+    got = walk_kernel.block_counts(gate)
+    assert got.dtype == torch.int32 and got.tolist() == want
+
+
+def test_walk_compact_bytes_count_its_gate_slots_and_rays():
+    """``walk_kernel.kernel_bytes``'s ``walk_compact``: a byte a lane of
+    gate, 8 + 24 a slot written (its index and ray) and 24 a gathered
+    ray."""
+    assert walk_kernel.kernel_bytes(131072, 6553, 1000)["walk_compact"] == (
+        131072 + 6553 * 32 + 1000 * 24) == walk_kernel.compact_bytes(131072, 6553, 1000)
 
 
 def test_walk_segment_bytes_count_the_segments_lane_tensors():

@@ -166,3 +166,27 @@ def test_the_tally_folds_any_number_of_compactions(n):
     st = {k: int(v) for k, v in tally.fold("cpu").items()}
     assert st == {"bezier_overflow": sum(max(g - 4, 0) for g in gated),
                   "bezier_lanes_used": sum(min(g, 4) for g in gated), "bezier_lanes": 4 * n}
+
+
+@pytest.mark.parametrize("gated", [
+    [9, 7, 10],
+    [0, 0, 0],
+    [i % 7 for i in range(trace.BezierTally.CHUNK + 5)],
+], ids=["overflow", "none", "past-a-chunk"])
+def test_a_written_slot_folds_as_a_searched_key(gated):
+    """The three counters fold the same whether a compaction's gated count
+    comes from its sorted key (the op code's ``add``) or is written into
+    its slot directly (as the card's compaction kernel writes it), into
+    4 lanes of 10 rays each time; outside a tally there is no slot."""
+    keyed, written = trace.BezierTally(), trace.BezierTally()
+    for g in gated:
+        keyed.add(compact_indices_keyed(torch.arange(10) < g, 4)[1], 4)
+        written.slot(4, "cpu").fill_(g)
+    assert trace.bezier_count_slot(4, "cpu") is None
+    with trace.bezier_tally() as tally:
+        trace.bezier_count_slot(4, "cpu").fill_(gated[0])
+    assert tally.lanes == [4]
+    want = {"bezier_overflow": sum(max(g - 4, 0) for g in gated),
+            "bezier_lanes_used": sum(min(g, 4) for g in gated), "bezier_lanes": 4 * len(gated)}
+    fold = lambda t: {k: int(v) for k, v in t.fold("cpu").items()}
+    assert fold(keyed) == fold(written) == want
